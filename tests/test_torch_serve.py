@@ -1,0 +1,303 @@
+"""Port's serving layer (vqwild_tpu_torch/serve) against the JAX package's,
+on the CPU: top-k, the on-disk index, the micro-batched service and its
+HTTP front-end, the server entry point end to end, and the port's rules
+(no JAX imports, no silent CPU fallback)."""
+
+import ast
+import io
+import json
+import os
+import threading
+import urllib.error
+import urllib.request
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.test_torch_trunk import full_model_variables, random_trunk_variables
+from vqwild_tpu.models import fold as jfold
+from vqwild_tpu.models import torch_export
+from vqwild_tpu.ops.preprocess import rgb_to_yuv420_host
+from vqwild_tpu.serve.index import GalleryIndex as JaxGalleryIndex
+from vqwild_tpu_torch.core.device import resolve_device
+from vqwild_tpu_torch.serve.__main__ import main as serve_main
+from vqwild_tpu_torch.serve.http import make_server
+from vqwild_tpu_torch.serve.index import GalleryIndex, _pow2
+from vqwild_tpu_torch.serve.service import QueryService
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _feats(n=50, c=16, seed=0, duplicates=False):
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(size=(n, c)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    if duplicates:
+        feats[20:30] = feats[0:10]  # exact ties: the lower row must come first
+    meta = [{"video_id": f"v{i:03d}", "label": f"cls{i % 7}", "retrieval_type": "base"}
+            for i in range(n)]
+    return feats, meta
+
+
+def _index(**kw):
+    feats, meta = _feats(**kw)
+    return GalleryIndex(feats, meta, device="cpu"), feats
+
+
+def _post(url, body):
+    with urllib.request.urlopen(urllib.request.Request(url, data=body), timeout=60) as r:
+        return json.load(r)
+
+
+class TestGalleryIndex:
+    # B = 3 and 5 fill power-of-two buckets with zero rows; k = 7 buckets to 8
+    @pytest.mark.parametrize("duplicates", [False, True])
+    @pytest.mark.parametrize("b,k", [(3, 5), (5, 7), (1, 50)])
+    def test_topk_matches_jax(self, duplicates, b, k):
+        feats, meta = _feats(duplicates=duplicates)
+        rng = np.random.default_rng(1)
+        q = rng.normal(size=(b, 16)).astype(np.float32)
+        q[0] = feats[3]  # distance 0 to row 3 (and, with duplicates, row 23)
+        want_s, want_i = JaxGalleryIndex(feats, meta).topk(q, k=k)
+        got_s, got_i = GalleryIndex(feats, meta, device="cpu").topk(q, k=k)
+        np.testing.assert_array_equal(got_i, want_i)
+        np.testing.assert_allclose(got_s, want_s, rtol=1e-5, atol=1e-5)
+        if duplicates:
+            assert list(got_i[0, :2]) == [3, 23]
+
+    def test_pow2(self):
+        assert [_pow2(x) for x in (1, 2, 3, 5, 16, 17)] == [1, 2, 4, 8, 16, 32]
+
+    def test_loads_index_saved_by_jax(self, tmp_path):
+        feats, meta = _feats(n=40, seed=2)
+        jidx = JaxGalleryIndex(feats, meta)
+        jidx.save(str(tmp_path / "idx"))
+        idx = GalleryIndex.load(str(tmp_path / "idx"), device="cpu")
+        assert idx.n == 40 and idx.meta == meta and idx.lookup([5, 7]) == meta[5:8:2]
+        q = np.random.default_rng(3).normal(size=(2, 16)).astype(np.float32)
+        np.testing.assert_array_equal(idx.topk(q, 6)[1], jidx.topk(q, 6)[1])
+
+    def test_save_load_roundtrip_clears_moment_marker(self, tmp_path):
+        d = tmp_path / "idx"
+        d.mkdir()
+        (d / "windows.npz").write_bytes(b"stale")
+        index, feats = _index(n=12)
+        index.save(str(d))
+        assert not (d / "windows.npz").exists()
+        loaded = GalleryIndex.load(str(d), device="cpu")
+        np.testing.assert_array_equal(np.load(d / "feats.npy"), feats)
+        q = feats[:1]
+        np.testing.assert_array_equal(index.topk(q, 4)[1], loaded.topk(q, 4)[1])
+        assert loaded.row_meta(5)["video_id"] == "v005"
+
+
+class TestQueryService:
+    def test_concurrent_queries_batch_correctly(self):
+        index, feats = _index()
+        svc = QueryService(index, max_batch=8, max_wait_ms=20.0)
+        results = {}
+
+        def one(i):
+            results[i] = svc.query_features(feats[i], k=1)
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(12)]
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=30)
+                assert not t.is_alive()
+        finally:
+            svc.close()
+        for i in range(12):
+            assert results[i][0]["video_id"] == f"v{i:03d}", results[i]
+
+    def test_bad_request_fails_alone(self):
+        index, feats = _index()
+        svc = QueryService(index, max_batch=8, max_wait_ms=20.0)
+        good = {}
+        t = threading.Thread(target=lambda: good.setdefault("r", svc.query_features(feats[5], k=1)))
+        try:
+            t.start()
+            with pytest.raises(ValueError):
+                svc.query_features(np.zeros((3,), np.float32))
+            with pytest.raises(ValueError):
+                svc.query_features(feats[0], k=0)
+            t.join(timeout=30)
+        finally:
+            svc.close()
+        assert good["r"][0]["video_id"] == "v005"
+
+
+class TestHTTP:
+    """Mirrors tests/test_serve.py::TestHTTP on the port's service."""
+
+    @pytest.fixture()
+    def server(self):
+        index, feats = _index()
+
+        def fake_embed(y, uv):
+            b, t = y.shape[0], y.shape[1]
+            out = np.zeros((b, 16, t), np.float32)
+            out[:, :, :] = feats[7][None, :, None]
+            return out
+
+        svc = QueryService(index, embed_fn=fake_embed, max_wait_ms=1.0)
+        srv = make_server(svc, host="127.0.0.1", port=0)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        yield f"http://127.0.0.1:{srv.server_address[1]}", feats
+        srv.shutdown()
+        srv.server_close()
+        svc.close()
+
+    def test_healthz(self, server):
+        base, _ = server
+        with urllib.request.urlopen(f"{base}/healthz", timeout=30) as r:
+            assert json.load(r) == {"ok": True, "gallery": 50}
+
+    def test_query_features_roundtrip(self, server):
+        base, feats = server
+        body = _post(f"{base}/query/features",
+                     json.dumps({"feature": feats[11].tolist(), "k": 2}).encode())
+        assert body["results"][0]["video_id"] == "v011"
+        assert len(body["results"]) == 2
+
+    def test_query_clip_npz(self, server):
+        base, _ = server
+        buf = io.BytesIO()
+        np.savez(buf, y=np.zeros((2, 8, 8), np.uint8), uv=np.zeros((2, 4, 4, 2), np.uint8))
+        body = _post(f"{base}/query/clip?k=1", buf.getvalue())
+        assert body["results"][0]["video_id"] == "v007"
+
+    @pytest.mark.parametrize("path,payload,code", [
+        ("/query/features", b"not json", 400),
+        ("/query/features", b"{}", 400),
+        ("/query/clip", b"garbage-not-npz", 400),
+        # no moment index: the JAX server answers the same opaque 500
+        ("/query/moments", b'{"feature": [0.0]}', 500),
+    ])
+    def test_error_responses(self, server, path, payload, code):
+        base, _ = server
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            _post(base + path, payload)
+        assert ei.value.code == code
+        body = json.load(ei.value)
+        assert set(body) == {"error"}
+        if code == 400:
+            assert body["error"].split(": ", 1)[1].isidentifier()
+        else:
+            assert body == {"error": "internal error"}
+
+
+def _serve_in_thread(argv):
+    ready = threading.Event()
+    holder = {}
+
+    def on_ready(srv):
+        holder["srv"] = srv
+        ready.set()
+
+    t = threading.Thread(target=serve_main, args=(argv, on_ready), daemon=True)
+    t.start()
+    assert ready.wait(timeout=120), "server did not start"
+    return holder["srv"], t
+
+
+class TestServerEntryPoint:
+    def test_clip_queries_end_to_end_match_jax(self, tmp_path):
+        """The slice as a whole: a reference checkpoint and an index saved by
+        the JAX package, the port's server on the CPU; a clip query returns
+        what the JAX trunk + JAX index return for the same clip."""
+        variables = full_model_variables(random_trunk_variables(seed=7))
+        ckpt = str(tmp_path / "best.pth.tar")
+        torch_export.save_reference_checkpoint(ckpt, variables, "baseline")
+        rng = np.random.default_rng(8)
+        y, uv = rgb_to_yuv420_host(rng.integers(0, 256, (4, 3, 32, 32, 3), dtype=np.uint8))
+        embed = jax.jit(jfold.make_embed_fn(variables, dtype=jnp.float32))
+        clip_feats = np.asarray(embed(y, uv)).mean(axis=2)  # [4, 512]
+        pad = rng.normal(size=(36, 512)).astype(np.float32)
+        pad /= np.linalg.norm(pad, axis=1, keepdims=True)
+        feats = np.concatenate([clip_feats, pad])
+        meta = [{"video_id": f"v{i:03d}", "label": "x", "retrieval_type": "base"}
+                for i in range(40)]
+        jidx = JaxGalleryIndex(feats, meta)
+        jidx.save(str(tmp_path / "idx"))
+
+        srv, thread = _serve_in_thread([
+            "--index_dir", str(tmp_path / "idx"), "--test_load", ckpt, "--port", "0",
+            "--device", "cpu", "--max_wait_ms", "1",
+        ])
+        try:
+            base = f"http://127.0.0.1:{srv.server_address[1]}"
+            for ci in range(4):
+                buf = io.BytesIO()
+                np.savez(buf, y=y[ci], uv=uv[ci])
+                res = _post(f"{base}/query/clip?k=5", buf.getvalue())["results"]
+                want_s, want_i = jidx.topk(clip_feats[ci:ci + 1], k=5)
+                assert [r["video_id"] for r in res] == [meta[i]["video_id"] for i in want_i[0]]
+                assert res[0]["video_id"] == f"v{ci:03d}" and res[0]["score"] >= -1e-3
+                np.testing.assert_allclose([r["score"] for r in res], want_s[0], atol=1e-4)
+        finally:
+            srv.shutdown()
+            thread.join(timeout=30)
+        assert not thread.is_alive()
+
+    @pytest.mark.parametrize("extra,exc", [
+        (["--regime", "moment"], NotImplementedError),
+        (["--regime", "clip"], NotImplementedError),
+        (["--trunk_int8"], NotImplementedError),
+    ])
+    def test_unported_options_raise(self, tmp_path, extra, exc):
+        _index(n=4)[0].save(str(tmp_path / "idx"))
+        with pytest.raises(exc, match="not yet ported"):
+            serve_main(["--index_dir", str(tmp_path / "idx"), "--device", "cpu"] + extra)
+
+    def test_missing_index_raises(self, tmp_path):
+        with pytest.raises(FileNotFoundError, match="not yet ported"):
+            serve_main(["--index_dir", str(tmp_path / "none"), "--device", "cpu"])
+
+    def test_moment_index_raises(self, tmp_path):
+        _index(n=4)[0].save(str(tmp_path / "idx"))
+        (tmp_path / "idx" / "windows.npz").write_bytes(b"")
+        with pytest.raises(NotImplementedError):
+            serve_main(["--index_dir", str(tmp_path / "idx"), "--device", "cpu"])
+
+
+class TestPortRules:
+    def test_no_jax_imports(self):
+        """The port and its smoke import torch, numpy and the standard
+        library: never jax, flax or the JAX package."""
+        files = sorted((REPO / "vqwild_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+        assert len(files) > 10
+        bad = []
+        for f in files:
+            for node in ast.walk(ast.parse(f.read_text(), str(f))):
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom):
+                    names = [node.module or ""]
+                else:
+                    continue
+                for n in names:
+                    if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "vqwild_tpu"):
+                        bad.append(f"{f.relative_to(REPO)}: {n}")
+        assert bad == []
+
+    def test_cuda_default_raises_without_gpu(self, tmp_path):
+        if torch.cuda.is_available():
+            pytest.skip("a GPU is present: the default device is usable")
+        feats, meta = _feats(n=4)
+        with pytest.raises(RuntimeError, match="cuda"):
+            resolve_device("cuda")
+        with pytest.raises(RuntimeError, match="cuda"):
+            GalleryIndex(feats, meta)
+        GalleryIndex(feats, meta, device="cpu").save(str(tmp_path / "idx"))
+        with pytest.raises(RuntimeError, match="cuda"):
+            GalleryIndex.load(str(tmp_path / "idx"))
+        with pytest.raises(RuntimeError, match="cuda"):
+            serve_main(["--index_dir", str(tmp_path / "idx"), "--no_embed"])

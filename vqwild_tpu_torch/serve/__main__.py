@@ -1,0 +1,132 @@
+"""Serving entry point: load a gallery index and answer queries over HTTP.
+
+  # serve a prebuilt index (feature queries only, no model)
+  python -m vqwild_tpu_torch.serve --index_dir gallery_index --no_embed --port 8080
+
+  # also answer clip queries through the trunk of a reference checkpoint
+  python -m vqwild_tpu_torch.serve --index_dir gallery_index \
+      --test_load best.pth.tar --port 8080
+
+The flags are those of ``python -m vqwild_tpu.serve`` plus ``--device``
+(default ``cuda``; ``cpu`` must be asked for) and ``--dtype``. The index
+directory is the JAX server's format. Building an index from the DB and
+frame store, ``--regime clip|moment`` and ``--trunk_int8`` are not ported
+yet and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Callable, Optional
+
+_DTYPES = ("float32", "bfloat16")
+
+
+def main(argv=None, on_ready: Optional[Callable] = None) -> None:
+    """Run the server until interrupted or shut down. ``on_ready(server)``,
+    if given, is called with the bound ThreadingHTTPServer before it starts
+    serving (its ``server_address`` holds the port when ``--port 0``)."""
+    p = argparse.ArgumentParser(description="ARV gallery query server (PyTorch)")
+    p.add_argument("--index_dir", required=True,
+                   help="gallery index directory holding feats.npy + meta.json")
+    p.add_argument("--test_load", default="",
+                   help="reference-format checkpoint (.pth.tar) for the embed trunk")
+    p.add_argument("--method", default="baseline", choices=["baseline", "va", "vasa"])
+    p.add_argument("--meta_split", default="100_20_80")
+    p.add_argument("--data_root", default="data")
+    p.add_argument("--frame_store", default="jpeg",
+                   choices=["jpeg", "packed", "packed_yuv", "synthetic"])
+    p.add_argument("--frames_dir", default="")
+    p.add_argument("--eval_split", default="testing", choices=["validation", "testing"])
+    p.add_argument("--regime", default="trimmed", choices=["trimmed", "clip", "moment"])
+    p.add_argument("--clip_sec", type=int, default=6)
+    p.add_argument("--moment_clip_sec", type=int, default=5)
+    p.add_argument("--max_clips_per_moment", type=int, default=26)
+    p.add_argument("--max_gallery", type=int, default=0)
+    p.add_argument("--input_size", type=int, default=112)
+    p.add_argument("--test_frame", type=int, default=32)
+    p.add_argument("--test_batch_size", type=int, default=30)
+    p.add_argument("--trunk_int8", action="store_true")
+    p.add_argument("--no_embed", action="store_true",
+                   help="feature queries only (no model load)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--k", type=int, default=30)
+    p.add_argument("--max_batch", type=int, default=16)
+    p.add_argument("--max_wait_ms", type=float, default=5.0)
+    p.add_argument("--device", default="cuda",
+                   help="torch device; the server never falls back to the CPU")
+    p.add_argument("--dtype", default="float32", choices=_DTYPES,
+                   help="trunk compute dtype (float32 runs with TF32 off)")
+    args = p.parse_args(argv)
+
+    if args.regime != "trimmed":
+        raise NotImplementedError(f"--regime {args.regime} is not yet ported")
+    if args.trunk_int8:
+        raise NotImplementedError("--trunk_int8 is not yet ported")
+    if not os.path.exists(os.path.join(args.index_dir, "feats.npy")):
+        raise FileNotFoundError(
+            f"--index_dir {args.index_dir!r} holds no feats.npy; building an "
+            "index from the DB and frame store is not yet ported"
+        )
+    if os.path.exists(os.path.join(args.index_dir, "windows.npz")):
+        raise NotImplementedError("serving a moment index is not yet ported")
+
+    import torch
+
+    from vqwild_tpu_torch.core.device import disable_tf32, resolve_device
+    from vqwild_tpu_torch.core.logging import get_logger
+    from vqwild_tpu_torch.serve.http import make_server
+    from vqwild_tpu_torch.serve.index import GalleryIndex
+    from vqwild_tpu_torch.serve.service import QueryService
+
+    log = get_logger("serve")
+    device = resolve_device(args.device)
+    dtype = getattr(torch, args.dtype)
+    if dtype == torch.float32:
+        disable_tf32()
+
+    embed_fn = None
+    if not args.no_embed:
+        embed_fn = _build_embed_fn(args, device, dtype, log)
+
+    index = GalleryIndex.load(args.index_dir, device=device)
+    log.info("loaded gallery index: %d rows", index.n)
+    service = QueryService(
+        index, embed_fn=embed_fn, default_k=args.k,
+        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+    )
+    server = make_server(service, host=args.host, port=args.port)
+    log.info("serving %d gallery rows on http://%s:%d", index.n,
+             args.host, server.server_address[1])
+    try:
+        if on_ready is not None:
+            on_ready(server)
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+        service.close()
+
+
+def _build_embed_fn(args, device, dtype, log):
+    """The serving trunk with the feat_fn contract: f(y, uv) → [B, C, T]."""
+    from vqwild_tpu_torch.models.convert import load_reference_checkpoint
+    from vqwild_tpu_torch.models.resnet_f2f import ResNet18F2F
+    from vqwild_tpu_torch.retrieval.features import make_feat_fn
+
+    if args.test_load:
+        trunk = load_reference_checkpoint(args.test_load, device=device)
+    else:
+        log.warning(
+            "no --test_load given: using RANDOMLY INITIALIZED weights "
+            "(fine for smoke tests, meaningless for real retrieval)"
+        )
+        trunk = ResNet18F2F().eval()
+    return make_feat_fn(trunk, wire="yuv420", dtype=dtype, device=device)
+
+
+if __name__ == "__main__":
+    main()
