@@ -1,7 +1,8 @@
 """Port's fused stem (vqwild_tpu_torch/ops/stem_pool.py) against the JAX
 package: the plain PyTorch version against stem_s2d_pool_pallas run in
-interpret mode, as tests/test_pallas.py runs it on the CPU; kernel K2
-against the plain version on a GPU (marker ``cuda``)."""
+interpret mode, as tests/test_pallas.py runs it on the CPU; the emulation of
+the fp32 kernel's three-pass TF32 split against both; kernel K2 against the
+plain version on a GPU (marker ``cuda``)."""
 
 import numpy as np
 import pytest
@@ -15,10 +16,10 @@ from vqwild_tpu_torch.ops import stem_pool
 TOL = {"float32": 1e-5, "bfloat16": 0.05}
 
 
-def _inputs(n, hw, seed):
+def _inputs(n, hw, seed, c=6):
     rng = np.random.default_rng(seed)
-    x = rng.standard_normal((n, hw, hw, 6)).astype(np.float32)
-    k = (0.1 * rng.standard_normal((4, 4, 6, 64))).astype(np.float32)
+    x = rng.standard_normal((n, hw, hw, c)).astype(np.float32)
+    k = (0.1 * rng.standard_normal((4, 4, c, 64))).astype(np.float32)
     b = (0.1 * rng.standard_normal((64,))).astype(np.float32)
     return x, k, b
 
@@ -72,6 +73,63 @@ class TestPlainAgainstPallas:
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
+class TestTf32Split:
+    """The fp32 kernel's arithmetic (hi/lo TF32 split, three products) in
+    plain PyTorch: it keeps fp32 accuracy, and one TF32 pass does not."""
+
+    # |conv| ~ scale (x ~ N(0, scale), w ~ 0.1, K = 96); the dropped lo*lo term
+    # and the split's rounding are ~2^-21 relative, so 2e-5 * scale holds with
+    # room, while one TF32 pass (2^-11 relative per product) is ~30x above it
+    SPLIT_TOL = 2e-5
+
+    def test_rounding_is_to_nearest_ties_away(self):
+        v = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12,
+                          1.0 + 2.0 ** -10 + 2.0 ** -11, 3.0e-20, -7.25],
+                         dtype=torch.float32)
+        want = torch.tensor([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0,
+                             1.0 + 2.0 ** -9, 3.0e-20, -7.25], dtype=torch.float32)
+        got = stem_pool._tf32(v)
+        assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
+        torch.testing.assert_close(got[:4], want[:4], rtol=0, atol=0)
+        torch.testing.assert_close(got[4:], want[4:], rtol=2.0 ** -11, atol=0)
+
+    @pytest.mark.parametrize("scale", [1.0, 1e3, 1e-3])
+    @pytest.mark.parametrize("n,hw", [(5, 16), (4, 12)])
+    def test_three_passes_match_plain(self, n, hw, scale):
+        x, k, b = _inputs(n, hw, seed=7)
+        args = _torch(x * np.float32(scale), k, b * np.float32(scale), torch.float32)
+        want = stem_pool.stem_s2d_pool_plain(*args)
+        got = stem_pool.stem_s2d_pool_tf32_emulated(*args)
+        assert got.shape == want.shape and got.dtype == want.dtype
+        torch.testing.assert_close(got, want, rtol=0, atol=self.SPLIT_TOL * scale)
+
+    @pytest.mark.parametrize("scale", [1.0, 1e3, 1e-3])
+    @pytest.mark.parametrize("n,hw", [(5, 16), (4, 12)])
+    def test_one_pass_does_not_match_plain(self, n, hw, scale):
+        x, k, b = _inputs(n, hw, seed=7)
+        args = _torch(x * np.float32(scale), k, b * np.float32(scale), torch.float32)
+        want = stem_pool.stem_s2d_pool_plain(*args)
+        got = stem_pool.stem_s2d_pool_tf32_emulated(*args, passes=1)
+        assert (got - want).abs().max().item() > 5 * self.SPLIT_TOL * scale
+
+    @pytest.mark.parametrize("n,hw", [(5, 16), (4, 12)])
+    def test_three_passes_match_pallas_interpret(self, n, hw):
+        jax = pytest.importorskip("jax")
+        jnp = jax.numpy
+        pk = pytest.importorskip("vqwild_tpu.ops.pallas_kernels")
+        x, k, b = _inputs(n, hw, seed=2)
+        want = pk.stem_s2d_pool_pallas(jnp.asarray(x), jnp.asarray(k), jnp.asarray(b),
+                                       interpret=jax.default_backend() != "tpu")
+        got = stem_pool.stem_s2d_pool_tf32_emulated(*_torch(x, k, b, torch.float32))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                                   atol=TOL["float32"])
+
+    def test_rejects_other_pass_counts(self):
+        with pytest.raises(ValueError):
+            stem_pool.stem_s2d_pool_tf32_emulated(
+                *_torch(*_inputs(1, 4, seed=1), torch.float32), passes=2)
+
+
 class TestWrapper:
     def test_cpu_tensor_runs_plain_version(self):
         args = _torch(*_inputs(2, 8, seed=3), torch.float32)
@@ -106,6 +164,27 @@ class TestKernelOnCard:
         want = stem_pool.stem_s2d_pool_plain(*args)
         atol = 1e-4 if dtype == "float32" else TOL[dtype]
         torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+    # a clip query's 32 frames (fewer work items than two per SM), an odd C
+    # (the staged tile pads channels to even; plain loads, no cp.async), and
+    # C = 2, the narrowest K
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("n,hw,c", [(32, 56, 6), (3, 20, 3), (2, 14, 1), (2, 10, 2)])
+    def test_kernel_matches_plain_other_batches_and_channels(self, cuda, n, hw, c, dtype):
+        args = [t.to(cuda) for t in _torch(*_inputs(n, hw, seed=8, c=c), getattr(torch, dtype))]
+        got = stem_pool.stem_s2d_pool(*args)
+        torch.cuda.synchronize()
+        want = stem_pool.stem_s2d_pool_plain(*args)
+        atol = 2e-5 if dtype == "float32" else TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+    def test_kernel_keeps_fp32_accuracy_on_scaled_inputs(self, cuda):
+        """Three compensated TF32 passes, not one: 2e-5 relative at x ~ 1e3."""
+        x, k, b = _inputs(3, 56, seed=9)
+        args = [t.to(cuda) for t in _torch(x * np.float32(1e3), k, b, torch.float32)]
+        got = stem_pool.stem_s2d_pool(*args)
+        want = stem_pool.stem_s2d_pool_plain(*args)
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5 * 1e3)
 
     def test_kernel_rejects_odd_size(self, cuda):
         x = torch.zeros(1, 5, 4, 6, device=cuda)

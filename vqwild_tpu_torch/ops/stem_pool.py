@@ -3,9 +3,13 @@ maxpool) in one pass, so the [N,H,W,64] pre-pool activation never reaches
 device memory.
 
 Counterpart of vqwild_tpu/ops/pallas_kernels.py ``stem_s2d_pool_pallas``;
-the CUDA source and its design note are ``csrc/stem_pool.cu``.
-``stem_s2d_pool`` launches the kernel on a CUDA tensor and runs the plain
-PyTorch version, ``stem_s2d_pool_plain``, on a CPU tensor.
+the CUDA source and its design note are ``csrc/stem_pool.cu`` (an implicit
+GEMM on the tensor cores: one bf16 pass, or three error-compensated TF32
+passes for fp32). ``stem_s2d_pool`` launches the kernel on a CUDA tensor
+and runs the plain PyTorch version, ``stem_s2d_pool_plain``, on a CPU
+tensor. ``stem_s2d_pool_tf32_emulated`` repeats the fp32 kernel's split
+arithmetic in plain PyTorch, for the tests. ``time_stem_pool.py`` beside
+this module checks and times the kernel of a checkout on the card.
 """
 
 from __future__ import annotations
@@ -32,6 +36,34 @@ def stem_s2d_pool_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> to
     y = torch.relu(y + b.float()[None, :, None, None]).to(x.dtype)
     y = F.max_pool2d(y, 3, 2, padding=1)  # implicit -inf padding, as flax's
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def _tf32(v: torch.Tensor) -> torch.Tensor:
+    """fp32 → TF32 (10 mantissa bits), round to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32``: half a TF32 ULP added to the magnitude,
+    the low 13 bits cleared."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def stem_s2d_pool_tf32_emulated(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                                passes: int = 3) -> torch.Tensor:
+    """``stem_s2d_pool_plain`` with the fp32 kernel's arithmetic: x and w
+    are split into ``hi = tf32(v)`` and ``lo = tf32(v - hi)``, and the conv
+    is ``x_lo*w_hi + x_hi*w_lo + x_hi*w_hi``, each product exact and the sums
+    in fp32. ``passes=1`` keeps only ``x_hi*w_hi``, plain TF32. Nothing on
+    the serving path calls this; the tests hold the split's accuracy with it."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    c = x.shape[3]
+    xf = F.pad(x.permute(0, 3, 1, 2).float(), (2, 1, 2, 1))
+    k = w.reshape(4, 4, c, -1).permute(3, 2, 0, 1).float()  # HWIO → OIHW
+    x_hi, k_hi = _tf32(xf), _tf32(k)
+    y = F.conv2d(x_hi, k_hi)
+    if passes == 3:
+        y = (F.conv2d(_tf32(xf - x_hi), k_hi) + F.conv2d(x_hi, _tf32(k - k_hi))) + y
+    y = torch.relu(y + b.float()[None, :, None, None]).to(x.dtype)
+    return F.max_pool2d(y, 3, 2, padding=1).permute(0, 2, 3, 1).contiguous()
 
 
 def _lib():
