@@ -9,9 +9,12 @@ Phases, each printing one JSON line:
   (b) build   — nvcc builds csrc/sq_l2.cu (K1) and csrc/stem_pool.cu (K2),
                 both started together; build seconds and ptxas usage.
   (c) k1      — K1 against its plain PyTorch version at the serving shapes
-                and two ragged ones: rtol 1e-5 / atol 1e-3 on N(0,1) data,
-                and top-30 rows identical on a gallery with planted,
-                well-separated neighbours (tie-free by construction).
+                (a full bucket of 16 queries and a single one) and two
+                ragged ones: rtol 1e-5 / atol 1e-3 on N(0,1) data, and
+                top-30 rows identical on a gallery with planted,
+                well-separated neighbours (tie-free by construction). Each
+                line carries the launcher's split of K and its grid. The
+                bound is computed as K2's fp32 bound is.
   (d) k2      — K2 against its plain version at [960,56,56,6] (an embed
                 batch): fp32 with TF32 off, atol 1e-4; bf16, atol 0.05 (one
                 bf16 ULP at magnitude 2); and at [32,56,56,6] (a clip
@@ -57,7 +60,10 @@ FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM, bf16 tensor cores, dense
 TF32_FLOPS = 495e12  # H100 SXM, TF32 tensor cores, dense
 
-K1_SHAPES = [(16, 7670, 512), (16, 100000, 512), (5, 130, 512), (300, 1000, 64)]
+# the smoke's gallery at a full query bucket and at one query (a sequential
+# request), a gallery four times the L2 cache, two ragged shapes
+K1_SHAPES = [(16, 7670, 512), (16, 100000, 512), (1, 7670, 512), (5, 130, 512), (300, 1000, 64)]
+K1_BEYOND_L2 = (16, 100000, 512)  # cannot sit in L2: its time is held to its bound
 # an embed batch (30 clips x 32 frames) in both types, a clip query in fp32
 K2_CASES = [((960, 56, 56, 6), ("float32", "bfloat16")), ((32, 56, 56, 6), ("float32",))]
 K2_ATOL = {"float32": 1e-4, "bfloat16": 0.05}
@@ -135,7 +141,7 @@ def planted(nq: int, ng: int, d: int, gen, dev):
 def phase_k1(dev, shapes):
     import torch
 
-    from vqwild_tpu_torch.ops.distance import pairwise_sq_l2, sq_l2
+    from vqwild_tpu_torch.ops.distance import launch_plan, pairwise_sq_l2, sq_l2
 
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = []
@@ -158,10 +164,13 @@ def phase_k1(dev, shapes):
             )
         else:
             kernel_ms = plain_ms = library_ms = None
-        b_ms, b_by = bound(4.0 * (nq * d + ng * d + nq * ng), 2.0 * nq * ng * d)
+        b_ms, b_by = bound_fp32_product(4.0 * (nq * d + ng * d + nq * ng), 2.0 * nq * ng * d)
+        if kernel_ms is not None and (nq, ng, d) == K1_BEYOND_L2 and kernel_ms < b_ms:
+            raise AssertionError(f"K1 {(nq, ng, d)}: {kernel_ms} ms is under its bound {b_ms}")
         row = {"phase": "k1", "shape": [nq, ng, d], "max_abs_err": err,
                "topk_queries_checked": m, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+               "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "launch": launch_plan(nq, ng, d) if dev.type == "cuda" else None}
         emit(row)
         rows.append(row)
     return rows
@@ -465,7 +474,7 @@ def main() -> int:
          "launches": serve["launches"]["sq_l2"],
          "max_abs_err": max(r["max_abs_err"] for r in k1),
          "ms": k1_main["kernel_ms"], "plain_ms": k1_main["plain_ms"],
-         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"],
+         "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"].split(",")[0],
          "library_ms": k1_main["library_ms"], "shape": k1_main["shape"]},
         {"name": "stem_s2d_pool", "route": "cuda", "source": "vqwild_tpu_torch/csrc/stem_pool.cu",
          "replaces": "vqwild_tpu/ops/pallas_kernels.py:152",

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from vqwild_tpu_torch.ops import stem_pool
+from vqwild_tpu_torch.ops import stem_pool, tf32
 
 # fp32: the same conv sums in another order (1e-5, test_pallas.py's);
 # bf16: accumulation order can move the final bf16 rounding by one ULP
@@ -88,7 +88,7 @@ class TestTf32Split:
                          dtype=torch.float32)
         want = torch.tensor([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0,
                              1.0 + 2.0 ** -9, 3.0e-20, -7.25], dtype=torch.float32)
-        got = stem_pool._tf32(v)
+        got = tf32.tf32_round(v)
         assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
         torch.testing.assert_close(got[:4], want[:4], rtol=0, atol=0)
         torch.testing.assert_close(got[4:], want[4:], rtol=2.0 ** -11, atol=0)

@@ -2,9 +2,21 @@
 
 Scores are −‖q−g‖² (higher is better), computed by the expansion
 ‖q‖² + ‖g‖² − 2·q·gᵀ in fp32. Kernel K1 (``csrc/sq_l2.cu``) is the
-counterpart of vqwild_tpu/ops/pallas_kernels.py ``pairwise_sq_l2_pallas``:
-``sq_l2`` launches it on a CUDA tensor and runs the plain PyTorch version,
-``pairwise_sq_l2``, on a CPU tensor.
+counterpart of vqwild_tpu/ops/pallas_kernels.py ``pairwise_sq_l2_pallas``.
+Like the Pallas kernel it takes the cross term on the matrix unit with an
+error-compensated multi-pass product: ``mma.sync`` TF32 in three passes
+over a hi/lo split of both operands, which keeps fp32 accuracy. The
+gallery goes from device memory straight into the ``mma`` operand
+registers (no shared memory, no barrier in the K loop); both norms are
+taken in fp32 from the unsplit values in the same pass; a small gallery is
+split along D over the warps of a block so that the card is filled. The
+design note is in the CUDA source.
+
+``sq_l2`` launches the kernel on a CUDA tensor and runs the plain PyTorch
+version, ``pairwise_sq_l2``, on a CPU tensor.
+``pairwise_sq_l2_tf32_emulated`` repeats the kernel's split arithmetic in
+plain PyTorch, for the tests. ``time_kernels.py`` beside this module
+checks and times the kernel of a checkout on the card.
 """
 
 from __future__ import annotations
@@ -14,6 +26,7 @@ import ctypes
 import torch
 
 from vqwild_tpu_torch.ops import _build
+from vqwild_tpu_torch.ops.tf32 import tf32_split
 
 launches = _build.LaunchCount()
 
@@ -29,13 +42,47 @@ def pairwise_sq_l2(q: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(q2 + g2 - 2.0 * (q @ g.T), 0.0)
 
 
+def pairwise_sq_l2_tf32_emulated(q: torch.Tensor, g: torch.Tensor,
+                                 passes: int = 3) -> torch.Tensor:
+    """``pairwise_sq_l2`` with the kernel's arithmetic: q and g are split
+    into ``hi = tf32(v)`` and ``lo = tf32(v - hi)`` and the cross term is
+    ``q_lo·g_hi + q_hi·g_lo + q_hi·g_hi``, each product exact and the sums in
+    fp32; the norms come from the unsplit values. ``passes=1`` keeps only
+    ``q_hi·g_hi``, plain TF32. Nothing on the serving path calls this; the
+    tests hold the split's accuracy and its tie behaviour with it."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    q = q.float()
+    g = g.float()
+    (q_hi, q_lo), (g_hi, g_lo) = tf32_split(q), tf32_split(g)
+    cross = q_hi @ g_hi.T
+    if passes == 3:
+        cross = (q_lo @ g_hi.T + q_hi @ g_lo.T) + cross
+    q2 = (q * q).sum(dim=-1, keepdim=True)
+    g2 = (g * g).sum(dim=-1)[None, :]
+    return torch.clamp_min(q2 + g2 - 2.0 * cross, 0.0)
+
+
 def _lib():
     lib = _build.load("sq_l2")
-    fn = lib.sq_l2_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.sq_l2_launch.argtypes is None:
+        lib.sq_l2_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.sq_l2_launch.restype = ctypes.c_int
+        lib.sq_l2_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        lib.sq_l2_plan.restype = ctypes.c_int
+    return lib
+
+
+def launch_plan(nq: int, ng: int, d: int) -> dict:
+    """What the launcher picks for a [nq,d]×[ng,d] call on the current
+    card: ``split_k`` (warps of a block that share 32 gallery rows and
+    take a slice of D each), ``grid`` and ``block`` (threads), and the
+    dynamic shared memory in bytes. Needs the built kernel, so a GPU
+    machine."""
+    plan = (ctypes.c_int * 5)()
+    _build.check(_lib().sq_l2_plan(nq, ng, d, plan), "sq_l2_plan")
+    return {"split_k": plan[0], "grid": [plan[1], plan[2]], "block": plan[3],
+            "smem_bytes": plan[4]}
 
 
 def sq_l2(q: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -56,7 +103,7 @@ def sq_l2(q: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     out = torch.empty((nq, ng), dtype=torch.float32, device=q.device)
     if nq == 0 or ng == 0:
         return out
-    fn = _lib()
+    fn = _lib().sq_l2_launch
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), g.data_ptr(), out.data_ptr(), nq, ng, d, stream)

@@ -8,7 +8,7 @@ GEMM on the tensor cores: one bf16 pass, or three error-compensated TF32
 passes for fp32). ``stem_s2d_pool`` launches the kernel on a CUDA tensor
 and runs the plain PyTorch version, ``stem_s2d_pool_plain``, on a CPU
 tensor. ``stem_s2d_pool_tf32_emulated`` repeats the fp32 kernel's split
-arithmetic in plain PyTorch, for the tests. ``time_stem_pool.py`` beside
+arithmetic in plain PyTorch, for the tests. ``time_kernels.py`` beside
 this module checks and times the kernel of a checkout on the card.
 """
 
@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from vqwild_tpu_torch.ops import _build
+from vqwild_tpu_torch.ops.tf32 import tf32_split
 
 launches = _build.LaunchCount()
 
@@ -38,14 +39,6 @@ def stem_s2d_pool_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> to
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def _tf32(v: torch.Tensor) -> torch.Tensor:
-    """fp32 → TF32 (10 mantissa bits), round to nearest, ties away from
-    zero, as ``cvt.rna.tf32.f32``: half a TF32 ULP added to the magnitude,
-    the low 13 bits cleared."""
-    bits = v.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
 def stem_s2d_pool_tf32_emulated(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                                 passes: int = 3) -> torch.Tensor:
     """``stem_s2d_pool_plain`` with the fp32 kernel's arithmetic: x and w
@@ -58,10 +51,10 @@ def stem_s2d_pool_tf32_emulated(x: torch.Tensor, w: torch.Tensor, b: torch.Tenso
     c = x.shape[3]
     xf = F.pad(x.permute(0, 3, 1, 2).float(), (2, 1, 2, 1))
     k = w.reshape(4, 4, c, -1).permute(3, 2, 0, 1).float()  # HWIO → OIHW
-    x_hi, k_hi = _tf32(xf), _tf32(k)
+    (x_hi, x_lo), (k_hi, k_lo) = tf32_split(xf), tf32_split(k)
     y = F.conv2d(x_hi, k_hi)
     if passes == 3:
-        y = (F.conv2d(_tf32(xf - x_hi), k_hi) + F.conv2d(x_hi, _tf32(k - k_hi))) + y
+        y = (F.conv2d(x_lo, k_hi) + F.conv2d(x_hi, k_lo)) + y
     y = torch.relu(y + b.float()[None, :, None, None]).to(x.dtype)
     return F.max_pool2d(y, 3, 2, padding=1).permute(0, 2, 3, 1).contiguous()
 
