@@ -9,8 +9,9 @@ Phases, each printing one JSON line:
   (b) build   — nvcc builds csrc/sq_l2.cu (K1) and csrc/stem_pool.cu (K2),
                 both started together; build seconds and ptxas usage.
   (c) k1      — K1 against its plain PyTorch version at the serving shapes
-                (a full bucket of 16 queries and a single one) and two
-                ragged ones: rtol 1e-5 / atol 1e-3 on N(0,1) data, and
+                (a full bucket of 16 queries and a single one), at an
+                evaluator chunk (256 queries) and at two ragged ones:
+                rtol 1e-5 / atol 1e-3 on N(0,1) data, and
                 top-30 rows identical on a gallery with planted,
                 well-separated neighbours (tie-free by construction). Each
                 line carries the launcher's split of K and its grid. The
@@ -32,7 +33,28 @@ Phases, each printing one JSON line:
                 (device time by kernel, busy share; line "profile") and
                 the card's embeddings against the CPU path on a small
                 input (1e-4).
-  (f) kernels — one {"kernels": [...]} line.
+  (f) eval    — the data layer, the building of an index and the trimmed
+                evaluator, with the launch counters zeroed just before and
+                read just after. A seeded trimmed DB (7,670 testing records
+                over 100 labels plus distractors, a quarter of them
+                queries) and its split-spec JSON are written to a temp
+                directory. "eval_fake": ARVRetrievalTrimmed on seeded fake
+                512-d features on the card and again with device="cpu";
+                every entry of the two metric dicts within 1e-3; K1 is
+                launched once per 256-query chunk; one more run under
+                torch.profiler (line "profile_rank": device time by
+                kernel, host waits). "eval_real": the
+                server's entry point, with no index on disk, builds the
+                index of the first 1,920 records from the synthetic frame
+                store (64 batches of 30 clips x 32 frames x 112 x 112,
+                yuv420 wire, fp32; K2 once per batch), saves it and
+                answers a feature query for one of its rows with that row
+                first; then ARVRetrievalTrimmed with the real extractor
+                over the same records: features equal to the index's
+                within 1e-5, metrics finite and in [0, 1], clips/s through
+                FeatureExtractor (host work included).
+  (g) kernels — one {"kernels": [...]} line; ``launches`` counts the serve
+                and eval phases together.
 
 Then the card's name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -62,13 +84,19 @@ TF32_FLOPS = 495e12  # H100 SXM, TF32 tensor cores, dense
 
 # the smoke's gallery at a full query bucket and at one query (a sequential
 # request), a gallery four times the L2 cache, two ragged shapes
-K1_SHAPES = [(16, 7670, 512), (16, 100000, 512), (1, 7670, 512), (5, 130, 512), (300, 1000, 64)]
+K1_SHAPES = [(16, 7670, 512), (16, 100000, 512), (1, 7670, 512), (5, 130, 512), (300, 1000, 64),
+             (256, 7670, 512)]
+K1_EVAL_CHUNK = (256, 7670, 512)  # one rank chunk of the trimmed evaluator
 K1_BEYOND_L2 = (16, 100000, 512)  # cannot sit in L2: its time is held to its bound
 # an embed batch (30 clips x 32 frames) in both types, a clip query in fp32
 K2_CASES = [((960, 56, 56, 6), ("float32", "bfloat16")), ((32, 56, 56, 6), ("float32",))]
 K2_ATOL = {"float32": 1e-4, "bfloat16": 0.05}
 GALLERY_ROWS = 7670
 EMBED_BATCHES, CLIPS, FRAMES, CROP = 16, 30, 32, 112
+# the eval phase's DB: 100 labels x 72 records + 470 distractors = 7,670
+EVAL_LABELS, EVAL_PER_LABEL, EVAL_QUERIES_PER_LABEL, EVAL_DISTRACTORS = 100, 72, 18, 470
+EVAL_REAL_RECORDS = 1920  # 64 embed batches; no cut from the size asked for
+EVAL_METRIC_TOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -283,6 +311,16 @@ def concurrently(fns):
     return out
 
 
+def device_ms_by_kernel(prof) -> dict:
+    """Device time (ms) by kernel name from a torch.profiler run; empty if
+    the profiler traced no device activity."""
+    kernels = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    return kernels
+
+
 def profile_embed(feat_fn, y, uv):
     """One embed batch under torch.profiler: device time by kernel, and the
     device's busy share of the call's wall time."""
@@ -295,10 +333,7 @@ def profile_embed(feat_fn, y, uv):
         feat_fn(y, uv)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):
-            kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    kernels = device_ms_by_kernel(prof)
     device_ms = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     k2_ms = sum(v for k, v in kernels.items() if "stem_pool_kernel" in k)
@@ -436,6 +471,247 @@ def phase_serve(dev, workdir, *, batches, clips, frames, crop, gallery_rows,
     return row
 
 
+def write_trimmed_db(workdir, *, labels, per_label, queries_per_label, distractors, seed):
+    """A seeded trimmed DB in the arv_db_*.json schema and its split-spec
+    JSON. The ``testing`` split holds ``per_label`` records for each of
+    ``labels`` classes (80% base, 20% test-novel; ``queries_per_label`` of
+    them is_query=1) and ``distractors`` noise records after the fifth
+    class, every record a video of its own. Returns the spec's path."""
+    rng = np.random.default_rng(seed)
+    names = [f"activity_{i:03d}" for i in range(labels)]
+    n_base = labels * 4 // 5
+    serial = iter(range(10**9))
+
+    def record(label, rtype, is_query):
+        start = float(rng.uniform(0.0, 5.0))
+        seg = [start, start + float(rng.uniform(8.0, 14.0))]
+        return {"video_id": f"v_{next(serial):07d}", "label": label, "segment": seg,
+                "border": seg, "activitynet_subset": "validation",
+                "activitynet_duration": 64 / 3, "is_query": is_query, "retrieval_type": rtype}
+
+    testing = {}
+    for i, name in enumerate(names):
+        if i == 5:
+            testing["distractor_activity"] = [
+                record("distractor_activity", "noise", -1) for _ in range(distractors)]
+        rtype = "base" if i < n_base else "novel"
+        testing[name] = [record(name, rtype, 1 if j < queries_per_label else 0)
+                         for j in range(per_label)]
+    with open(os.path.join(workdir, "arv_db_smoke.json"), "w") as f:
+        json.dump({"training": {}, "validation": {}, "testing": testing}, f)
+    spec = os.path.join(workdir, "split_smoke.json")
+    with open(spec, "w") as f:
+        json.dump({"name": "smoke", "train_labels": names[:n_base], "val_labels": [],
+                   "test_labels": names[n_base:], "db_json": "arv_db_smoke.json",
+                   "moment_db_json": ""}, f)
+    return spec
+
+
+def tree_max_diff(a, b, path="result"):
+    """Largest |a - b| over two metric dicts of one structure; raises on a
+    structural difference or a value that is not finite."""
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            raise AssertionError(f"{path}: keys differ")
+        return max([tree_max_diff(a[k], b[k], f"{path}[{k!r}]") for k in a], default=0.0)
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{path}: lengths differ")
+        return max([tree_max_diff(x, y, f"{path}[{i}]") for i, (x, y) in enumerate(zip(a, b))],
+                   default=0.0)
+    if isinstance(a, (str, bool, type(None))):
+        if a != b:
+            raise AssertionError(f"{path}: {a!r} != {b!r}")
+        return 0.0
+    if not (np.isfinite(a) and np.isfinite(b)):
+        raise AssertionError(f"{path}: {a} / {b} is not finite")
+    return abs(float(a) - float(b))
+
+
+def tree_numbers(a):
+    if isinstance(a, dict):
+        a = list(a.values())
+    if isinstance(a, (list, tuple)):
+        return [x for v in a for x in tree_numbers(v)]
+    return [] if isinstance(a, (str, bool, type(None))) else [float(a)]
+
+
+def profile_rank(evaluate):
+    """One evaluator run on fake features under torch.profiler: the rank
+    loop's device time by kernel, and how often the host waited for the
+    device (the profiler's own overhead inflates the host times, so only
+    device times and counts are reported)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        evaluate()
+        torch.cuda.synchronize()
+    kernels = device_ms_by_kernel(prof)
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync",
+                          "cudaLaunchKernel")}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    return {"phase": "profile_rank", "what": "the evaluator on fake features, 8 chunks of 256",
+            "device_ms": sum(kernels.values()) if kernels else "not traced",
+            "sq_l2_ms": sum(v for k, v in kernels.items() if "sq_l2_kernel" in k),
+            "n_kernel_names": len(kernels), "runtime_calls": calls,
+            "top_kernels_ms": [[k[:90], v] for k, v in top]}
+
+
+def phase_eval(dev, workdir, ckpt, *, labels, per_label, queries_per_label, distractors,
+               real_records, clips, frames, crop, feat_dim=512, rank_chunk=256):
+    import torch
+
+    from vqwild_tpu_torch.data.frames import SyntheticFrameStore
+    from vqwild_tpu_torch.data.labels import get_split
+    from vqwild_tpu_torch.data.schema import load_trimmed_db
+    from vqwild_tpu_torch.models.convert import load_reference_checkpoint
+    from vqwild_tpu_torch.ops import distance, stem_pool
+    from vqwild_tpu_torch.retrieval import (
+        ARVRetrievalTrimmed, FeatureExtractor, make_fake_feat_fn, make_feat_fn,
+    )
+    from vqwild_tpu_torch.serve.__main__ import main as serve_main
+
+    def counts():
+        return {"sq_l2": distance.launches.n, "stem_s2d_pool": stem_pool.launches.n}
+
+    def since(before):
+        return {k: v - before[k] for k, v in counts().items()}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    spec_path = write_trimmed_db(workdir, labels=labels, per_label=per_label,
+                                 queries_per_label=queries_per_label,
+                                 distractors=distractors, seed=5)
+    distance.launches.reset()
+    stem_pool.launches.reset()
+    # ---- the eval path, from here to the counter read at the end ----
+    spec = get_split(spec_path)
+    db = load_trimmed_db(spec.db_json)
+    n_records = len(db.flat("testing"))
+
+    # (a) seeded fake features: the card against the CPU path
+    def fake_eval(device):
+        ex = FeatureExtractor(make_fake_feat_fn(feat_dim, seed=6), SyntheticFrameStore(),
+                              test_frames=frames, test_batch_size=clips, fake=True)
+        ev = ARVRetrievalTrimmed(db, spec, ex, eval_split="testing", rank_chunk=rank_chunk,
+                                 device=device)
+        t0 = time.perf_counter()
+        result = ev.evaluation()
+        return result, ev.timings, time.perf_counter() - t0
+
+    before = counts()
+    fake_eval(dev)  # warm-up: the first sort and cumulative ops load their kernels
+    sync()
+    got, timings, wall_s = fake_eval(dev)
+    fake_launches = since(before)
+    want, cpu_timings, cpu_wall_s = fake_eval("cpu")
+    n_queries = labels * queries_per_label
+    n_chunks = -(-n_queries // rank_chunk)
+    diff = tree_max_diff(got, want)
+    emit({"phase": "eval_fake", "records": n_records, "labels": labels + 1,
+          "queries": n_queries, "chunks": n_chunks, "rank_chunk": rank_chunk,
+          "feat_dim": feat_dim, "metrics_max_abs_diff_vs_cpu": diff, "tol": EVAL_METRIC_TOL,
+          "ap": got["ap"], "o1_class_agnostic_map": got["o1_class_agnostic_map"],
+          "timings_s": timings, "wall_s": wall_s, "cpu_timings_s": cpu_timings,
+          "cpu_wall_s": cpu_wall_s, "launches_two_runs": fake_launches})
+    if not diff <= EVAL_METRIC_TOL:
+        raise AssertionError(f"card and CPU metrics differ by {diff} > {EVAL_METRIC_TOL}")
+    if dev.type == "cuda" and fake_launches != {"sq_l2": 2 * n_chunks, "stem_s2d_pool": 0}:
+        raise AssertionError(f"eval_fake: launches {fake_launches}, expected K1 once per chunk "
+                             f"({n_chunks} chunks, two runs)")
+    if dev.type == "cuda":
+        emit(profile_rank(lambda: fake_eval(dev)))
+
+    # (b) the server builds, saves and serves the index of the first
+    # ``real_records`` records; then the evaluator with the real extractor
+    index_dir = os.path.join(workdir, "eval_index")
+    ready = threading.Event()
+    holder = {}
+
+    def on_ready(server):
+        holder["server"] = server
+        ready.set()
+
+    argv = ["--index_dir", index_dir, "--test_load", ckpt, "--port", "0", "--device", str(dev),
+            "--dtype", "float32", "--meta_split", spec_path, "--frame_store", "synthetic",
+            "--eval_split", "testing", "--max_gallery", str(real_records),
+            "--input_size", str(crop), "--test_frame", str(frames),
+            "--test_batch_size", str(clips)]
+    before = counts()
+    t0 = time.perf_counter()
+    srv_thread = threading.Thread(target=serve_main, args=(argv, on_ready), daemon=True)
+    srv_thread.start()
+    if not ready.wait(timeout=900):
+        raise TimeoutError("server did not build its index")
+    build_s = time.perf_counter() - t0
+    server = holder["server"]
+    try:
+        feats = np.load(os.path.join(index_dir, "feats.npy"))
+        with open(os.path.join(index_dir, "meta.json")) as f:
+            meta = json.load(f)
+        row = real_records // 3
+        body, _ = post(f"http://127.0.0.1:{server.server_address[1]}/query/features",
+                       json.dumps({"feature": feats[row].tolist(), "k": 10}).encode())
+        top = body["results"][0]
+        if top["video_id"] != meta[row]["video_id"] or top["rank"] != 0:
+            raise AssertionError(f"feature query for built row {row} answered {top}")
+    finally:
+        server.shutdown()
+        srv_thread.join(timeout=60)
+    build_launches = since(before)
+    n_batches = -(-real_records // clips)
+    norms = np.linalg.norm(feats, axis=1)
+    if (feats.shape != (real_records, feat_dim) or not np.isfinite(feats).all()
+            or norms.max() > 1.0 + 1e-4 or norms.min() < 0.1):
+        raise AssertionError(f"built index: shape {feats.shape}, norms {norms.min()}..{norms.max()}")
+
+    before = counts()
+    feat_fn = make_feat_fn(load_reference_checkpoint(ckpt, device=dev), wire="yuv420",
+                           dtype=torch.float32, device=dev)
+    ex = FeatureExtractor(feat_fn, SyntheticFrameStore(), test_frames=frames,
+                          test_batch_size=clips, input_size=crop, wire="yuv420",
+                          max_batches=n_batches, cache_dir=os.path.join(workdir, "eval_cache"))
+    ev = ARVRetrievalTrimmed(db, spec, ex, eval_split="testing", rank_chunk=rank_chunk,
+                             device=dev)
+    result = ev.evaluation()
+    sync()
+    real_launches = since(before)
+    ev_feats = np.load(os.path.join(workdir, "eval_cache", "trimmed_testing_feats", "feats.npy"))
+    feats_err = float(np.abs(ev_feats[:real_records] - feats).max())
+    numbers = tree_numbers(result)
+    real_queries = sum(1 for r in ev.records if r.is_query == 1 and r.retrieval_type != "noise")
+    real_chunks = -(-real_queries // rank_chunk)
+    launches = counts()
+    # ---- end of the eval path ----
+    emit({"phase": "eval_real", "records": real_records, "records_asked_for": EVAL_REAL_RECORDS,
+          "embed_batches": n_batches, "clips_per_batch": clips, "frames": frames, "crop": crop,
+          "index_build_s": build_s, "index_build_clips_per_s": real_records / build_s,
+          "evaluator_records": len(ev.records),
+          "extractor_clips_per_s": len(ev.records) / ev.timings["features"],
+          "timings_s": ev.timings, "queries": real_queries, "chunks": real_chunks,
+          "feats_max_abs_diff_vs_index": feats_err, "feat_norm_min": float(norms.min()),
+          "feat_norm_max": float(norms.max()), "ap": result["ap"],
+          "o1_class_agnostic_map": result["o1_class_agnostic_map"],
+          "self_query_rank0": True, "launches_build_and_query": build_launches,
+          "launches_evaluator": real_launches, "launches": launches})
+    if len(ev.records) != min(n_batches * clips, n_records) or feats_err > 1e-5:
+        raise AssertionError(f"evaluator features differ from the index's by {feats_err}")
+    if not numbers or not all(np.isfinite(x) and 0.0 <= x <= 1.0 for x in numbers):
+        raise AssertionError(f"eval_real metrics outside [0, 1]: {result}")
+    if dev.type == "cuda":
+        if (build_launches["stem_s2d_pool"] < n_batches or build_launches["sq_l2"] < 1
+                or real_launches["stem_s2d_pool"] < n_batches
+                or real_launches["sq_l2"] != real_chunks):
+            raise AssertionError(f"eval_real launches: build {build_launches}, evaluator "
+                                 f"{real_launches}; {n_batches} batches, {real_chunks} chunks")
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -465,20 +741,33 @@ def main() -> int:
         serve = phase_serve(dev, workdir, batches=EMBED_BATCHES, clips=CLIPS, frames=FRAMES,
                             crop=CROP, gallery_rows=GALLERY_ROWS, ref_clips=2, ref_frames=4,
                             n_feature_q=32, n_clip_q=8)
+        evald = phase_eval(dev, workdir, os.path.join(workdir, "best.pth.tar"),
+                           labels=EVAL_LABELS, per_label=EVAL_PER_LABEL,
+                           queries_per_label=EVAL_QUERIES_PER_LABEL,
+                           distractors=EVAL_DISTRACTORS, real_records=EVAL_REAL_RECORDS,
+                           clips=CLIPS, frames=FRAMES, crop=CROP)
 
     k1_main = k1[0]  # (16, 7670, 512): the smoke's gallery at a full query bucket
+    k1_eval = next(r for r in k1 if tuple(r["shape"]) == K1_EVAL_CHUNK)
     k2_main = k2[0]  # an embed batch in fp32, the serving dtype
+    launches = {k: serve["launches"][k] + evald["launches"][k] for k in serve["launches"]}
     emit({"kernels": [
         {"name": "sq_l2", "route": "cuda", "source": "vqwild_tpu_torch/csrc/sq_l2.cu",
          "replaces": "vqwild_tpu/ops/pallas_kernels.py:53",
-         "launches": serve["launches"]["sq_l2"],
+         "launches": launches["sq_l2"],
+         "launches_by_path": {"serve": serve["launches"]["sq_l2"],
+                              "eval": evald["launches"]["sq_l2"]},
          "max_abs_err": max(r["max_abs_err"] for r in k1),
          "ms": k1_main["kernel_ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"].split(",")[0],
-         "library_ms": k1_main["library_ms"], "shape": k1_main["shape"]},
+         "library_ms": k1_main["library_ms"], "shape": k1_main["shape"],
+         "eval_chunk": {k: k1_eval[k] for k in ("shape", "kernel_ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms")}},
         {"name": "stem_s2d_pool", "route": "cuda", "source": "vqwild_tpu_torch/csrc/stem_pool.cu",
          "replaces": "vqwild_tpu/ops/pallas_kernels.py:152",
-         "launches": serve["launches"]["stem_s2d_pool"],
+         "launches": launches["stem_s2d_pool"],
+         "launches_by_path": {"serve": serve["launches"]["stem_s2d_pool"],
+                              "eval": evald["launches"]["stem_s2d_pool"]},
          "max_abs_err": k2_main["max_abs_err"],
          "ms": k2_main["kernel_ms"], "plain_ms": k2_main["plain_ms"],
          "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"].split(",")[0],

@@ -1,16 +1,18 @@
 """Port's serving layer (vqwild_tpu_torch/serve) against the JAX package's,
 on the CPU: top-k, the on-disk index, the micro-batched service and its
-HTTP front-end, the server entry point end to end, and the port's rules
-(no JAX imports, no silent CPU fallback)."""
+HTTP front-end, the server entry point end to end (serving a saved index,
+and building one from the DB and frame store), and the port's rules (no JAX
+imports, no silent CPU fallback)."""
 
 import ast
+import dataclasses
 import io
 import json
-import os
 import threading
 import urllib.error
 import urllib.request
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -18,12 +20,21 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_data import write_split_spec
 from tests.test_torch_trunk import full_model_variables, random_trunk_variables
+from vqwild_tpu.data.frames import SyntheticFrameStore as JaxSyntheticFrameStore
+from vqwild_tpu.data.schema import load_trimmed_db as jax_load_trimmed_db
 from vqwild_tpu.models import fold as jfold
 from vqwild_tpu.models import torch_export
 from vqwild_tpu.ops.preprocess import rgb_to_yuv420_host
+from vqwild_tpu.retrieval.features import FeatureExtractor as JaxFeatureExtractor
+from vqwild_tpu.retrieval.features import make_feat_fn as jax_make_feat_fn
 from vqwild_tpu.serve.index import GalleryIndex as JaxGalleryIndex
 from vqwild_tpu_torch.core.device import resolve_device
+from vqwild_tpu_torch.data.frames import SyntheticFrameStore
+from vqwild_tpu_torch.data.labels import SplitSpec
+from vqwild_tpu_torch.data.schema import load_trimmed_db
+from vqwild_tpu_torch.retrieval import ARVRetrievalTrimmed, FeatureExtractor, make_fake_feat_fn
 from vqwild_tpu_torch.serve.__main__ import main as serve_main
 from vqwild_tpu_torch.serve.http import make_server
 from vqwild_tpu_torch.serve.index import GalleryIndex, _pow2
@@ -258,8 +269,80 @@ class TestServerEntryPoint:
             serve_main(["--index_dir", str(tmp_path / "idx"), "--device", "cpu"] + extra)
 
     def test_missing_index_raises(self, tmp_path):
-        with pytest.raises(FileNotFoundError, match="not yet ported"):
-            serve_main(["--index_dir", str(tmp_path / "none"), "--device", "cpu"])
+        """No index on disk and nothing to build one with."""
+        with pytest.raises(SystemExit, match="--no_embed requires an existing"):
+            serve_main(["--index_dir", str(tmp_path / "none"), "--device", "cpu", "--no_embed"])
+        with pytest.raises(KeyError, match="unknown meta split"):
+            serve_main(["--index_dir", str(tmp_path / "none"), "--device", "cpu",
+                        "--meta_split", "no_such_split"])
+
+    def test_builds_saves_and_serves_an_index(self, tiny_arv, tmp_path):
+        """No index on disk: the server builds the trimmed index of the eval
+        split from the DB and the frame store, saves it in the JAX server's
+        format and serves it. feats.npy is within 1e-4 of the JAX
+        GalleryIndex.build's from the same weights, meta.json is equal."""
+        variables = full_model_variables(random_trunk_variables(seed=9))
+        ckpt = str(tmp_path / "best.pth.tar")
+        torch_export.save_reference_checkpoint(ckpt, variables, "baseline")
+        spec_path = write_split_spec(tiny_arv, tmp_path / "spec.json")
+        argv = ["--index_dir", str(tmp_path / "idx"), "--test_load", ckpt, "--port", "0",
+                "--device", "cpu", "--max_wait_ms", "1", "--meta_split", spec_path,
+                "--frame_store", "synthetic", "--eval_split", "testing", "--max_gallery", "10",
+                "--input_size", "32", "--test_frame", "2", "--test_batch_size", "4"]
+        srv, thread = _serve_in_thread(argv)
+        try:
+            feats = np.load(tmp_path / "idx" / "feats.npy")
+            meta = json.loads((tmp_path / "idx" / "meta.json").read_text())
+            base = f"http://127.0.0.1:{srv.server_address[1]}"
+            for row in (0, 3, 9):
+                res = _post(f"{base}/query/features",
+                            json.dumps({"feature": feats[row].tolist(), "k": 3}).encode())["results"]
+                assert res[0]["video_id"] == meta[row]["video_id"] and res[0]["rank"] == 0
+                assert res[0]["score"] >= -1e-5
+        finally:
+            srv.shutdown()
+            thread.join(timeout=30)
+        assert not thread.is_alive()
+
+        jmodel = SimpleNamespace(dtype=jnp.float32, bn_eps=1e-3)
+        jex = JaxFeatureExtractor(jax_make_feat_fn(jmodel, variables, wire="yuv420"),
+                                  JaxSyntheticFrameStore(), test_frames=2, test_batch_size=4,
+                                  input_size=32, wire="yuv420")
+        records = jax_load_trimmed_db(tiny_arv["db_path"]).flat("testing")[:10]
+        jidx = JaxGalleryIndex.build(records, jex)
+        jidx.save(str(tmp_path / "jidx"))
+        assert feats.shape == (10, 512) and feats.dtype == np.float32
+        np.testing.assert_allclose(feats, np.load(tmp_path / "jidx" / "feats.npy"),
+                                   rtol=0, atol=1e-4)
+        assert meta == json.loads((tmp_path / "jidx" / "meta.json").read_text()) == jidx.meta
+
+        # the second start finds the saved index and loads it: no trunk needed
+        srv, thread = _serve_in_thread(["--index_dir", str(tmp_path / "idx"), "--no_embed",
+                                        "--port", "0", "--device", "cpu"])
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{srv.server_address[1]}/healthz", timeout=30) as r:
+                assert json.load(r) == {"ok": True, "gallery": 10}
+        finally:
+            srv.shutdown()
+            thread.join(timeout=30)
+
+    def test_gallery_index_build_matches_jax(self, tiny_arv):
+        """GalleryIndex.build on fake features: rows, metadata and the debug
+        cap as the JAX class has them."""
+        records = load_trimmed_db(tiny_arv["db_path"]).flat("validation")
+        jrecords = jax_load_trimmed_db(tiny_arv["db_path"]).flat("validation")
+        kw = dict(test_frames=4, test_batch_size=4, fake=True, max_batches=3)
+        from vqwild_tpu.retrieval.features import make_fake_feat_fn as jax_fake
+
+        idx = GalleryIndex.build(
+            records, FeatureExtractor(make_fake_feat_fn(16, seed=1), SyntheticFrameStore(), **kw),
+            device="cpu")
+        jidx = JaxGalleryIndex.build(
+            jrecords, JaxFeatureExtractor(jax_fake(16, seed=1), JaxSyntheticFrameStore(), **kw))
+        assert idx.n == jidx.n == 12 and idx.meta == jidx.meta
+        assert set(idx.meta[0]) == {"video_id", "label", "retrieval_type"}
+        np.testing.assert_array_equal(idx.scorer.g_dev.numpy(), np.asarray(jidx.scorer.g_dev))
 
     def test_moment_index_raises(self, tmp_path):
         _index(n=4)[0].save(str(tmp_path / "idx"))
@@ -273,7 +356,11 @@ class TestPortRules:
         """The port and its smoke import torch, numpy and the standard
         library: never jax, flax or the JAX package."""
         files = sorted((REPO / "vqwild_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-        assert len(files) > 10
+        # every module of the port: the serving slice's 21 and the data,
+        # ranking and evaluator modules that came after
+        assert len(files) >= 40
+        assert {"data/frames.py", "ops/ranking.py", "retrieval/trimmed.py", "apps/cli.py"} <= {
+            str(f.relative_to(REPO / "vqwild_tpu_torch")) for f in files[:-1]}
         bad = []
         for f in files:
             for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -301,3 +388,21 @@ class TestPortRules:
             GalleryIndex.load(str(tmp_path / "idx"))
         with pytest.raises(RuntimeError, match="cuda"):
             serve_main(["--index_dir", str(tmp_path / "idx"), "--no_embed"])
+
+    def test_evaluator_and_index_build_raise_without_gpu(self, tiny_arv, tmp_path):
+        if torch.cuda.is_available():
+            pytest.skip("a GPU is present: the default device is usable")
+        db = load_trimmed_db(tiny_arv["db_path"])
+        ex = FeatureExtractor(make_fake_feat_fn(8, seed=0), SyntheticFrameStore(),
+                              test_frames=2, fake=True)
+        spec = SplitSpec(**dataclasses.asdict(tiny_arv["spec"]))
+        with pytest.raises(RuntimeError, match="cuda"):
+            ARVRetrievalTrimmed(db, spec, ex)
+        with pytest.raises(RuntimeError, match="cuda"):
+            GalleryIndex.build(db.flat("testing")[:4], ex)
+        # the server with no index to load and the default device: raises
+        # before anything is built
+        with pytest.raises(RuntimeError, match="cuda"):
+            serve_main(["--index_dir", str(tmp_path / "none"), "--frame_store", "synthetic",
+                        "--meta_split", write_split_spec(tiny_arv, tmp_path / "spec.json")])
+        assert not (tmp_path / "none").exists()

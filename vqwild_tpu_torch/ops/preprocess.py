@@ -1,8 +1,11 @@
-"""Clip preprocessing: the device normalize of the two wire formats, and the
-host RGB → YUV 4:2:0 conversion that makes the yuv420 planes.
+"""Clip preprocessing: host crop/flip and YUV 4:2:0 packing, device normalize.
 
-Counterparts of vqwild_tpu/ops/preprocess.py ``normalize_clips``,
-``normalize_clips_yuv420`` and ``rgb_to_yuv420_host`` (the last a copy).
+Counterpart of vqwild_tpu/ops/preprocess.py. Crop and flip are numpy
+slicing on the host (``crop_clips_host``, ``crop_yuv420_host``), so the
+cropped uint8 clip is what crosses to the device; ``normalize_clips`` and
+``normalize_clips_yuv420`` are the device halves of the two wire formats.
+The host functions are copies of the JAX package's, byte for byte in what
+they return.
 """
 
 from __future__ import annotations
@@ -10,8 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
-IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
+from vqwild_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 
 
 def _normalize01(x: torch.Tensor, out_dtype) -> torch.Tensor:
@@ -81,3 +83,68 @@ def rgb_to_yuv420_host(rgb_u8: np.ndarray):
     uv[..., 0] = cb
     uv[..., 1] = cr
     return y, uv
+
+
+def yuv420_to_rgb_host(y_u8: np.ndarray, uv_u8: np.ndarray) -> np.ndarray:
+    """Numpy mirror of the device conversion: (Y, UV) → RGB uint8.
+
+    Nearest-neighbor chroma upsample + BT.601 full-range. Used by the packed
+    YUV store's RGB-interface fallback and parity tests."""
+    y = y_u8.astype(np.float32)
+    uv = uv_u8.astype(np.float32) - 128.0
+    uv = np.repeat(np.repeat(uv, 2, axis=-3), 2, axis=-2)
+    cb, cr = uv[..., 0], uv[..., 1]
+    r = y + 1.402 * cr
+    g = y - 0.344136 * cb - 0.714136 * cr
+    b = y + 1.772 * cb
+    rgb = np.stack([r, g, b], axis=-1)
+    return np.clip(np.rint(rgb), 0, 255).astype(np.uint8)
+
+
+def crop_yuv420_host(y: np.ndarray, uv: np.ndarray, offsets, flips, size: int):
+    """Whole-clip crop+flip directly in YUV420 planes.
+
+    y [B,T,H,W], uv [B,T,H/2,W/2,2] → cropped (y, uv) at ``size``. Crop
+    offsets are rounded down to even so the chroma grid stays aligned (a
+    ≤1-pixel shift vs the RGB path; ``size`` must be even)."""
+    if size % 2:
+        raise ValueError("YUV420 crop size must be even")
+    b = y.shape[0]
+    oy = np.empty((b, y.shape[1], size, size), y.dtype)
+    ouv = np.empty((b, uv.shape[1], size // 2, size // 2, 2), uv.dtype)
+    for i in range(b):
+        top = (int(offsets[i][0]) // 2) * 2
+        left = (int(offsets[i][1]) // 2) * 2
+        cy = y[i, :, top : top + size, left : left + size]
+        cuv = uv[i, :, top // 2 : top // 2 + size // 2, left // 2 : left // 2 + size // 2, :]
+        if flips[i]:
+            cy = cy[:, :, ::-1]
+            cuv = cuv[:, :, ::-1, :]
+        oy[i] = cy
+        ouv[i] = cuv
+    return oy, ouv
+
+
+def crop_clips_host(frames: np.ndarray, offsets, flips, size: int) -> np.ndarray:
+    """Host crop+flip: [B,T,H,W,C] u8 + per-clip (top,left)/flip → [B,T,s,s,C] u8.
+
+    Pure slicing — each clip is one contiguous-ish memcpy; runs inside loader
+    threads (numpy releases the GIL)."""
+    b = frames.shape[0]
+    out = np.empty((b, frames.shape[1], size, size, frames.shape[4]), frames.dtype)
+    for i in range(b):
+        top, left = int(offsets[i][0]), int(offsets[i][1])
+        clip = frames[i, :, top : top + size, left : left + size, :]
+        out[i] = clip[:, :, ::-1, :] if flips[i] else clip
+    return out
+
+
+def preprocess_host(frames: np.ndarray, offsets, flips, size: int) -> np.ndarray:
+    """Numpy mirror for tests/parity."""
+    from vqwild_tpu_torch.data import transforms
+
+    out = []
+    for clip, (top, left), flip in zip(frames, offsets, flips):
+        p = transforms.CropParams(top=int(top), left=int(left), size=size, flip=bool(flip))
+        out.append(transforms.normalize_imagenet(transforms.apply_crop(clip, p)))
+    return np.stack(out, axis=0)

@@ -1,17 +1,19 @@
-"""Serving entry point: load a gallery index and answer queries over HTTP.
+"""Serving entry point: build (or load) a gallery index and answer queries
+over HTTP.
+
+  # build an index from the eval split of a DB and serve it; the index is
+  # saved to --index_dir and loaded from there the next time
+  python -m vqwild_tpu_torch.serve --index_dir gallery_index \
+      --test_load best.pth.tar --meta_split 100_20_80 \
+      --frame_store packed_yuv --frames_dir frames_yuv --port 8080
 
   # serve a prebuilt index (feature queries only, no model)
   python -m vqwild_tpu_torch.serve --index_dir gallery_index --no_embed --port 8080
 
-  # also answer clip queries through the trunk of a reference checkpoint
-  python -m vqwild_tpu_torch.serve --index_dir gallery_index \
-      --test_load best.pth.tar --port 8080
-
 The flags are those of ``python -m vqwild_tpu.serve`` plus ``--device``
 (default ``cuda``; ``cpu`` must be asked for) and ``--dtype``. The index
-directory is the JAX server's format. Building an index from the DB and
-frame store, ``--regime clip|moment`` and ``--trunk_int8`` are not ported
-yet and raise.
+directory is the JAX server's format. ``--regime clip|moment`` and
+``--trunk_int8`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -65,11 +67,6 @@ def main(argv=None, on_ready: Optional[Callable] = None) -> None:
         raise NotImplementedError(f"--regime {args.regime} is not yet ported")
     if args.trunk_int8:
         raise NotImplementedError("--trunk_int8 is not yet ported")
-    if not os.path.exists(os.path.join(args.index_dir, "feats.npy")):
-        raise FileNotFoundError(
-            f"--index_dir {args.index_dir!r} holds no feats.npy; building an "
-            "index from the DB and frame store is not yet ported"
-        )
     if os.path.exists(os.path.join(args.index_dir, "windows.npz")):
         raise NotImplementedError("serving a moment index is not yet ported")
 
@@ -91,8 +88,12 @@ def main(argv=None, on_ready: Optional[Callable] = None) -> None:
     if not args.no_embed:
         embed_fn = _build_embed_fn(args, device, dtype, log)
 
-    index = GalleryIndex.load(args.index_dir, device=device)
-    log.info("loaded gallery index: %d rows", index.n)
+    if os.path.exists(os.path.join(args.index_dir, "feats.npy")):
+        index = GalleryIndex.load(args.index_dir, device=device)
+        log.info("loaded gallery index: %d rows", index.n)
+    else:
+        index = _build_index(args, embed_fn, device)
+        index.save(args.index_dir)
     service = QueryService(
         index, embed_fn=embed_fn, default_k=args.k,
         max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
@@ -109,6 +110,48 @@ def main(argv=None, on_ready: Optional[Callable] = None) -> None:
     finally:
         server.server_close()
         service.close()
+
+
+def _cfg(args):
+    from vqwild_tpu_torch.core.config import (
+        DataConfig, EvalConfig, ExperimentConfig, ModelConfig, TrainConfig,
+    )
+
+    data = DataConfig(
+        meta_split=args.meta_split,
+        data_root=args.data_root,
+        frames_dir=args.frames_dir
+        or os.path.join(args.data_root, "activitynet1.3_train_val_frames_fps3"),
+        input_size=args.input_size,
+        test_frame=args.test_frame,
+        test_batch_size=args.test_batch_size,
+        frame_store=args.frame_store,
+    )
+    model = ModelConfig(method=args.method)
+    ev = EvalConfig(eval_split=args.eval_split, wire="yuv420")
+    return ExperimentConfig(data=data, model=model, train=TrainConfig(), eval=ev)
+
+
+def _build_index(args, embed_fn, device):
+    """The trimmed gallery index of ``--eval_split``: every record of the
+    split (``--max_gallery`` caps it) embedded through the serving trunk."""
+    from vqwild_tpu_torch.apps.cli import build_data_stack
+    from vqwild_tpu_torch.retrieval.features import FeatureExtractor
+    from vqwild_tpu_torch.serve.index import GalleryIndex
+
+    if embed_fn is None:
+        raise SystemExit("--no_embed requires an existing --index_dir")
+    cfg = _cfg(args)
+    _, db, store = build_data_stack(cfg)
+    extractor = FeatureExtractor(
+        embed_fn, store,
+        test_frames=cfg.data.test_frame,
+        test_batch_size=cfg.data.test_batch_size,
+        input_size=cfg.data.input_size,
+        wire="yuv420",
+    )
+    cap = args.max_gallery or None
+    return GalleryIndex.build(db.flat(args.eval_split)[:cap], extractor, device=device)
 
 
 def _build_embed_fn(args, device, dtype, log):

@@ -1,8 +1,9 @@
 """The serving gallery index: clip embeddings + metadata, on the device.
 
 Counterpart of vqwild_tpu/serve/index.py ``GalleryIndex``. The on-disk
-format is the same (``feats.npy`` + ``meta.json``), so the port serves an
-index the JAX server saved. ``MomentIndex`` comes with the moment slice.
+format is the same (``feats.npy`` + ``meta.json``), so either package
+serves an index the other built. ``MomentIndex`` comes with the moment
+slice.
 """
 
 from __future__ import annotations
@@ -15,9 +16,12 @@ import numpy as np
 import torch
 
 from vqwild_tpu_torch.core.logging import get_logger
+from vqwild_tpu_torch.data.schema import VideoRecord
 from vqwild_tpu_torch.retrieval.sharded import GalleryScorer
 
 log = get_logger("serve.index")
+
+_META_KEYS = ("video_id", "label", "retrieval_type")
 
 
 def _write_atomic(path: str, writer) -> None:
@@ -40,6 +44,19 @@ class GalleryIndex:
         self.feat_dim = feats.shape[1]
         self.scorer = GalleryScorer(feats, device=device)
         self.n = self.scorer.n
+
+    # ---- construction ----
+
+    @classmethod
+    def build(cls, records: Sequence[VideoRecord], extractor,
+              device: Union[str, torch.device] = "cuda") -> "GalleryIndex":
+        """Embed trimmed records through the extractor (already
+        temporal-mean clip embeddings [N, C], features.py extract_trimmed)."""
+        feats = extractor.extract_trimmed(list(records))
+        meta = [
+            {k: getattr(r, k) for k in _META_KEYS} for r in records[: feats.shape[0]]
+        ]
+        return cls(np.asarray(feats, np.float32), meta, device=device)
 
     # ---- persistence ----
 
