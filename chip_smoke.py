@@ -53,8 +53,30 @@ Phases, each printing one JSON line:
                 over the same records: features equal to the index's
                 within 1e-5, metrics finite and in [0, 1], clips/s through
                 FeatureExtractor (host work included).
-  (g) kernels — one {"kernels": [...]} line; ``launches`` counts the serve
-                and eval phases together.
+  (g) clip    — the untrimmed clip regime, with the launch counters zeroed
+                just before and read just after. A seeded moment DB is
+                written to a temp directory: 4,900 gallery videos (the size
+                of ActivityNet v1.3's validation split) of 60-230 s, 1-2
+                annotations each, and 1,800 queries over 100 labels (8
+                chunks of 256). "clip_fake": ARVRetrievalClip on seeded fake
+                512-d features over ~98,000 clip windows of 6 s (tapes from
+                a frame store that only knows each video's length): metrics
+                finite and in [0, 1], K1 once per chunk, its five timings;
+                one more run under torch.profiler (line "profile_rank_clip":
+                device ms by kernel, K1's share of the rank loop, launches,
+                synchronisations, host against device time); the first
+                tenth of the videos on the card and with device="cpu",
+                every entry of the two metric dicts within 1e-3.
+                "clip_real": the server's entry point, with no index on
+                disk, builds the clip index of 64 videos from the synthetic
+                frame store (64 frames each: 128 chunks, 5 embed batches,
+                K2 once per batch), saves it and answers a feature query
+                for one of its rows with that row first and its loc_sec;
+                then ARVRetrievalClip with the real extractor over the same
+                videos: gallery features equal to the index's within 1e-5,
+                clips/s of extract_video_tapes.
+  (h) kernels — one {"kernels": [...]} line; ``launches`` counts the serve,
+                eval and clip phases together.
 
 Then the card's name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -83,11 +105,14 @@ BF16_FLOPS = 989e12  # H100 SXM, bf16 tensor cores, dense
 TF32_FLOPS = 495e12  # H100 SXM, TF32 tensor cores, dense
 
 # the smoke's gallery at a full query bucket and at one query (a sequential
-# request), a gallery four times the L2 cache, two ragged shapes
+# request), a gallery four times the L2 cache, two ragged shapes, a rank
+# chunk of the trimmed and of the clip evaluator
 K1_SHAPES = [(16, 7670, 512), (16, 100000, 512), (1, 7670, 512), (5, 130, 512), (300, 1000, 64),
-             (256, 7670, 512)]
+             (256, 7670, 512), (256, 100000, 512)]
 K1_EVAL_CHUNK = (256, 7670, 512)  # one rank chunk of the trimmed evaluator
-K1_BEYOND_L2 = (16, 100000, 512)  # cannot sit in L2: its time is held to its bound
+K1_CLIP_CHUNK = (256, 100000, 512)  # one rank chunk of the clip evaluator
+# galleries that cannot sit in L2: their times are held to their bounds
+K1_BEYOND_L2 = ((16, 100000, 512), K1_CLIP_CHUNK)
 # an embed batch (30 clips x 32 frames) in both types, a clip query in fp32
 K2_CASES = [((960, 56, 56, 6), ("float32", "bfloat16")), ((32, 56, 56, 6), ("float32",))]
 K2_ATOL = {"float32": 1e-4, "bfloat16": 0.05}
@@ -97,6 +122,11 @@ EMBED_BATCHES, CLIPS, FRAMES, CROP = 16, 30, 32, 112
 EVAL_LABELS, EVAL_PER_LABEL, EVAL_QUERIES_PER_LABEL, EVAL_DISTRACTORS = 100, 72, 18, 470
 EVAL_REAL_RECORDS = 1920  # 64 embed batches; no cut from the size asked for
 EVAL_METRIC_TOL = 1e-3
+# the clip phase's moment DB: ActivityNet v1.3 validation has 4,926 videos;
+# 1,800 queries over 100 labels; the synthetic store's 64 frames a video
+# make 2 chunks each, so 64 videos give 128 chunks (5 embed batches)
+CLIP_VIDEOS, CLIP_QUERIES, CLIP_LABELS, CLIP_SEC = 4900, 1800, 100, 6
+CLIP_REAL_VIDEOS = 64
 
 
 def emit(obj) -> None:
@@ -193,7 +223,7 @@ def phase_k1(dev, shapes):
         else:
             kernel_ms = plain_ms = library_ms = None
         b_ms, b_by = bound_fp32_product(4.0 * (nq * d + ng * d + nq * ng), 2.0 * nq * ng * d)
-        if kernel_ms is not None and (nq, ng, d) == K1_BEYOND_L2 and kernel_ms < b_ms:
+        if kernel_ms is not None and (nq, ng, d) in K1_BEYOND_L2 and kernel_ms < b_ms:
             raise AssertionError(f"K1 {(nq, ng, d)}: {kernel_ms} ms is under its bound {b_ms}")
         row = {"phase": "k1", "shape": [nq, ng, d], "max_abs_err": err,
                "topk_queries_checked": m, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
@@ -536,27 +566,42 @@ def tree_numbers(a):
     return [] if isinstance(a, (str, bool, type(None))) else [float(a)]
 
 
-def profile_rank(evaluate):
+def profile_rank(evaluate, name="profile_rank",
+                 what="the evaluator on fake features, 8 chunks of 256"):
     """One evaluator run on fake features under torch.profiler: the rank
-    loop's device time by kernel, and how often the host waited for the
-    device (the profiler's own overhead inflates the host times, so only
-    device times and counts are reported)."""
+    loop's device time by kernel, K1's share of it, and how often the host
+    launched and waited (the profiler's own overhead inflates host times,
+    so the host's rank time is reported beside the device's as read in this
+    run). ``evaluate()`` returns the evaluator's timings. The rank loop's
+    device time is all device time but the host-to-device copies (the
+    gallery and query uploads)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        evaluate()
+        t0 = time.perf_counter()
+        timings = evaluate()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = device_ms_by_kernel(prof)
     calls = {e.key: e.count for e in prof.key_averages()
              if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync",
                           "cudaLaunchKernel")}
+    copies = {e.key: [str(e.device_type), e.self_device_time_total / 1e3, e.count]
+              for e in prof.key_averages() if "Memcpy" in e.key}
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
-    return {"phase": "profile_rank", "what": "the evaluator on fake features, 8 chunks of 256",
-            "device_ms": sum(kernels.values()) if kernels else "not traced",
-            "sq_l2_ms": sum(v for k, v in kernels.items() if "sq_l2_kernel" in k),
-            "n_kernel_names": len(kernels), "runtime_calls": calls,
+    device_ms = sum(kernels.values())
+    htod_ms = sum(v for k, v in kernels.items() if k.startswith("Memcpy HtoD"))
+    sq_l2_ms = sum(v for k, v in kernels.items() if "sq_l2_kernel" in k)
+    rank_ms = device_ms - htod_ms
+    return {"phase": name, "what": what,
+            "device_ms": device_ms if kernels else "not traced",
+            "memcpy_htod_ms": htod_ms, "rank_loop_device_ms": rank_ms,
+            "sq_l2_ms": sq_l2_ms, "sq_l2_share_of_rank_loop": sq_l2_ms / rank_ms if rank_ms else None,
+            "rank_loop_host_ms": 1e3 * (timings["rank_dispatch"] + timings["metrics_readback"]),
+            "wall_ms": wall_ms, "n_kernel_names": len(kernels), "runtime_calls": calls,
+            "copies": copies,
             "top_kernels_ms": [[k[:90], v] for k, v in top]}
 
 
@@ -625,7 +670,7 @@ def phase_eval(dev, workdir, ckpt, *, labels, per_label, queries_per_label, dist
         raise AssertionError(f"eval_fake: launches {fake_launches}, expected K1 once per chunk "
                              f"({n_chunks} chunks, two runs)")
     if dev.type == "cuda":
-        emit(profile_rank(lambda: fake_eval(dev)))
+        emit(profile_rank(lambda: fake_eval(dev)[1]))
 
     # (b) the server builds, saves and serves the index of the first
     # ``real_records`` records; then the evaluator with the real extractor
@@ -712,6 +757,260 @@ def phase_eval(dev, workdir, ckpt, *, labels, per_label, queries_per_label, dist
     return {"launches": launches}
 
 
+def write_moment_db(workdir, *, videos, queries, labels, seed):
+    """A seeded moment DB in the arv_db_*_untrimmed.json schema, an empty
+    trimmed DB, and their split-spec JSON. The gallery holds ``videos``
+    untrimmed videos of 60-230 s (60 + 170 x Beta(1.5, 2.75): mean 120 s,
+    skewed short as ActivityNet's are), each with 1-2 annotations of random
+    labels over 10-60% of the video; ``queries`` trimmed query clips spread
+    evenly over ``labels`` classes (80% base, 20% test-novel), and 20 noise
+    queries that the evaluator drops. Returns the spec's path and each
+    gallery video's frame count at 3 fps."""
+    rng = np.random.default_rng(seed)
+    names = [f"activity_{i:03d}" for i in range(labels)]
+    n_base = labels * 4 // 5
+    gallery, frames = [], {}
+    for i in range(videos):
+        dur = float(60.0 + 170.0 * rng.beta(1.5, 2.75))
+        anns = []
+        for _ in range(int(rng.integers(1, 3))):
+            length = dur * float(rng.uniform(0.1, 0.6))
+            start = float(rng.uniform(0.0, dur - length))
+            anns.append({"segment": [start, start + length],
+                         "label": names[int(rng.integers(labels))]})
+        vid = f"g_{i:06d}"
+        gallery.append({"video_id": vid, "label": "", "segment": [0.0, dur],
+                        "border": [0.0, dur], "activitynet_subset": "validation",
+                        "activitynet_duration": dur, "is_query": 0, "retrieval_type": "",
+                        "annotations": anns})
+        frames[vid] = int(dur * 3)
+    query = []
+    for j in range(queries + 20):
+        noise = j >= queries
+        start = float(rng.uniform(0.0, 5.0))
+        seg = [start, start + float(rng.uniform(8.0, 14.0))]
+        query.append({"video_id": f"q_{j:06d}", "label": "distractor" if noise else names[j % labels],
+                      "segment": seg, "border": seg, "activitynet_subset": "validation",
+                      "activitynet_duration": 64 / 3, "is_query": 1,
+                      "retrieval_type": "noise" if noise else
+                      ("base" if j % labels < n_base else "novel")})
+    with open(os.path.join(workdir, "arv_db_clip_untrimmed.json"), "w") as f:
+        json.dump({"query": query, "gallery": gallery}, f)
+    with open(os.path.join(workdir, "arv_db_clip.json"), "w") as f:
+        json.dump({"training": {}, "validation": {}, "testing": {}}, f)
+    spec = os.path.join(workdir, "split_clip.json")
+    with open(spec, "w") as f:
+        json.dump({"name": "clip", "train_labels": names[:n_base], "val_labels": [],
+                   "test_labels": names[n_base:], "db_json": "arv_db_clip.json",
+                   "moment_db_json": "arv_db_clip_untrimmed.json"}, f)
+    return spec, frames
+
+
+def length_store(frames_by_video):
+    """A synthetic frame store whose videos have the given frame counts
+    (all that fake features need of a store)."""
+    from vqwild_tpu_torch.data.frames import SyntheticFrameStore
+
+    class LengthStore(SyntheticFrameStore):
+        def num_frames(self, subset, video_id):
+            return frames_by_video[video_id]
+
+    return LengthStore()
+
+
+def phase_clip(dev, workdir, ckpt, *, videos, queries, labels, real_videos, clips, frames,
+               crop, clip_sec, feat_dim=512, rank_chunk=256):
+    import torch
+
+    from vqwild_tpu_torch.data.frames import SyntheticFrameStore
+    from vqwild_tpu_torch.data.labels import get_split
+    from vqwild_tpu_torch.data.schema import load_moment_db
+    from vqwild_tpu_torch.models.convert import load_reference_checkpoint
+    from vqwild_tpu_torch.ops import distance, stem_pool
+    from vqwild_tpu_torch.retrieval import (
+        ARVRetrievalClip, FeatureExtractor, make_fake_feat_fn, make_feat_fn,
+    )
+    from vqwild_tpu_torch.serve.__main__ import main as serve_main
+
+    def counts():
+        return {"sq_l2": distance.launches.n, "stem_s2d_pool": stem_pool.launches.n}
+
+    def since(before):
+        return {k: v - before[k] for k, v in counts().items()}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    spec_path, video_frames = write_moment_db(workdir, videos=videos, queries=queries,
+                                              labels=labels, seed=8)
+    distance.launches.reset()
+    stem_pool.launches.reset()
+    # ---- the clip path, from here to the counter read at the end ----
+    spec = get_split(spec_path)
+    mdb = load_moment_db(spec.moment_db_json)
+    n_queries = len(mdb.nonnoise_queries())
+    n_chunks = -(-n_queries // rank_chunk)
+    cache_dir = os.path.join(workdir, "clip_cache")
+
+    def timed(fn, key, spent):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    # (a) seeded fake features over the whole gallery; the host seconds of
+    # the tapes and of the cache write are read apart from gallery_build's
+    def fake_eval(device, gallery=None, **kw):
+        ex = FeatureExtractor(make_fake_feat_fn(feat_dim, seed=9), length_store(video_frames),
+                              test_frames=frames, test_batch_size=clips, fake=True, **kw)
+        spent = {}
+        ex.extract_video_tapes = timed(ex.extract_video_tapes, "tapes", spent)
+        ex.save_cache = timed(ex.save_cache, "cache_write", spent)
+        ev = ARVRetrievalClip(mdb, spec, ex, clip_sec=clip_sec, rank_chunk=rank_chunk,
+                              device=device, read_cache=kw.get("cache_dir") is not None)
+        if gallery is not None:
+            ev.gallery_videos = ev.gallery_videos[:gallery]
+        t0 = time.perf_counter()
+        result = ev.evaluation()
+        return result, ev.timings, time.perf_counter() - t0, spent
+
+    before = counts()
+    if os.path.isdir(cache_dir):
+        raise AssertionError(f"{cache_dir} exists before the first run")
+    got, timings, wall_s, spent = fake_eval(dev, cache_dir=cache_dir)  # builds, saves the gallery
+    sync()
+    fake_launches = since(before)
+    gal = np.load(os.path.join(cache_dir, "clip_gallery", "feats.npy"), mmap_mode="r")
+    n_windows = gal.shape[0]
+    numbers = tree_numbers(got)
+    n_tape_chunks = sum(-(-f // frames) for f in video_frames.values())
+    arena_gb = n_tape_chunks * frames * feat_dim * 4 / 1e9
+    build_split = {"tapes": spent["tapes"], "cache_write": spent["cache_write"],
+                   "windows_pool_label": timings["gallery_build"] - sum(spent.values())}
+    row = {"phase": "clip_fake", "gallery_videos": videos, "clip_windows": n_windows,
+           "clip_sec": clip_sec, "tape_arena_gb": arena_gb, "queries": n_queries,
+           "chunks": n_chunks, "rank_chunk": rank_chunk, "feat_dim": feat_dim,
+           "ap": got["ap"], "o1_class_agnostic_map": got["o1_class_agnostic_map"],
+           "timings_s": timings, "gallery_build_split_s": build_split,
+           "tape_chunks": n_tape_chunks, "tapes_clips_per_s": n_tape_chunks / spent["tapes"],
+           "wall_s": wall_s,
+           "rank_loop_host_ms": 1e3 * (timings["rank_dispatch"] + timings["metrics_readback"]),
+           "launches": fake_launches}
+    emit(row)
+    if not numbers or not all(np.isfinite(x) and 0.0 <= x <= 1.0 for x in numbers):
+        raise AssertionError(f"clip_fake metrics outside [0, 1]: {got}")
+    if set(timings) != {"query_feats", "gallery_build", "gallery_to_device", "rank_dispatch",
+                        "metrics_readback"}:
+        raise AssertionError(f"clip_fake timings: {sorted(timings)}")
+    if dev.type == "cuda" and fake_launches != {"sq_l2": n_chunks, "stem_s2d_pool": 0}:
+        raise AssertionError(f"clip_fake: launches {fake_launches}, expected K1 once per chunk "
+                             f"({n_chunks} chunks)")
+    if dev.type == "cuda":
+        emit(profile_rank(lambda: fake_eval(dev, cache_dir=cache_dir)[1], "profile_rank_clip",
+                          f"the clip evaluator on fake features, {n_chunks} chunks of "
+                          f"{rank_chunk} against {n_windows} windows (gallery from the cache)"))
+
+    # the first tenth of the videos: the card against the CPU path
+    tenth = videos // 10
+    want_small = fake_eval("cpu", gallery=tenth)[0]
+    got_small, small_timings = fake_eval(dev, gallery=tenth)[:2]
+    diff = tree_max_diff(got_small, want_small)
+    emit({"phase": "clip_fake_vs_cpu", "gallery_videos": tenth,
+          "metrics_max_abs_diff_vs_cpu": diff, "tol": EVAL_METRIC_TOL,
+          "ap": got_small["ap"], "timings_s": small_timings})
+    if not diff <= EVAL_METRIC_TOL:
+        raise AssertionError(f"clip: card and CPU metrics differ by {diff} > {EVAL_METRIC_TOL}")
+
+    # (b) the server builds, saves and serves the clip index of the first
+    # ``real_videos`` videos from the synthetic store; then the evaluator
+    # with the real extractor over the same videos
+    store = SyntheticFrameStore()
+    real_chunks = sum(-(-store.num_frames("validation", v.video_id) // frames)
+                      for v in mdb.gallery[:real_videos])
+    n_batches = -(-real_chunks // clips)
+    index_dir = os.path.join(workdir, "clip_index")
+    ready = threading.Event()
+    holder = {}
+
+    def on_ready(server):
+        holder["server"] = server
+        ready.set()
+
+    argv = ["--index_dir", index_dir, "--test_load", ckpt, "--port", "0", "--device", str(dev),
+            "--dtype", "float32", "--regime", "clip", "--clip_sec", str(clip_sec),
+            "--meta_split", spec_path, "--frame_store", "synthetic",
+            "--max_gallery", str(real_videos), "--input_size", str(crop),
+            "--test_frame", str(frames), "--test_batch_size", str(clips)]
+    before = counts()
+    t0 = time.perf_counter()
+    srv_thread = threading.Thread(target=serve_main, args=(argv, on_ready), daemon=True)
+    srv_thread.start()
+    if not ready.wait(timeout=600):
+        raise TimeoutError("server did not build its clip index")
+    build_s = time.perf_counter() - t0
+    server = holder["server"]
+    try:
+        feats = np.load(os.path.join(index_dir, "feats.npy"))
+        with open(os.path.join(index_dir, "meta.json")) as f:
+            meta = json.load(f)
+        row_i = len(meta) // 3
+        body, _ = post(f"http://127.0.0.1:{server.server_address[1]}/query/features",
+                       json.dumps({"feature": feats[row_i].tolist(), "k": 10}).encode())
+        top = body["results"][0]
+        if (top["video_id"] != meta[row_i]["video_id"] or top["rank"] != 0
+                or top.get("loc_sec") != meta[row_i]["loc_sec"]):
+            raise AssertionError(f"feature query for clip row {row_i} answered {top}")
+    finally:
+        server.shutdown()
+        srv_thread.join(timeout=60)
+    build_launches = since(before)
+    if feats.shape[1] != feat_dim or not np.isfinite(feats).all() or set(meta[0]) != {
+            "video_id", "label", "loc_sec"}:
+        raise AssertionError(f"clip index: shape {feats.shape}, meta {meta[:1]}")
+
+    before = counts()
+    feat_fn = make_feat_fn(load_reference_checkpoint(ckpt, device=dev), wire="yuv420",
+                           dtype=torch.float32, device=dev)
+    ex = FeatureExtractor(feat_fn, store, test_frames=frames, test_batch_size=clips,
+                          input_size=crop, wire="yuv420", max_batches=n_batches,
+                          cache_dir=os.path.join(workdir, "clip_real_cache"))
+    ev = ARVRetrievalClip(mdb, spec, ex, clip_sec=clip_sec, rank_chunk=rank_chunk, device=dev)
+    ev.gallery_videos = ev.gallery_videos[:real_videos]
+    result = ev.evaluation()
+    sync()
+    real_launches = since(before)
+    ev_feats = np.load(os.path.join(workdir, "clip_real_cache", "clip_gallery", "feats.npy"))
+    feats_err = float(np.abs(ev_feats - feats).max()) if ev_feats.shape == feats.shape else None
+    numbers = tree_numbers(result)
+    kept = min(n_batches * clips, n_queries)
+    eval_chunks = -(-kept // rank_chunk)
+    launches = counts()
+    # ---- end of the clip path ----
+    emit({"phase": "clip_real", "gallery_videos": real_videos, "chunks": real_chunks,
+          "embed_batches": n_batches, "clips_per_batch": clips, "frames": frames, "crop": crop,
+          "clip_windows": feats.shape[0], "index_build_s": build_s,
+          "tapes_clips_per_s": real_chunks / ev.timings["gallery_build"],
+          "timings_s": ev.timings, "feats_max_abs_diff_vs_index": feats_err,
+          "ap": result["ap"], "self_query_rank0": True, "loc_sec": top["loc_sec"],
+          "launches_build_and_query": build_launches, "launches_evaluator": real_launches,
+          "phase_s": time.perf_counter() - t_phase, "launches": launches})
+    if feats_err is None or feats_err > 1e-5:
+        raise AssertionError(f"evaluator clip features differ from the index's: {feats_err}")
+    if not numbers or not all(np.isfinite(x) and 0.0 <= x <= 1.0 for x in numbers):
+        raise AssertionError(f"clip_real metrics outside [0, 1]: {result}")
+    if dev.type == "cuda" and (build_launches["stem_s2d_pool"] != n_batches
+                               or build_launches["sq_l2"] < 1
+                               or real_launches["stem_s2d_pool"] != 2 * n_batches
+                               or real_launches["sq_l2"] != eval_chunks):
+        raise AssertionError(f"clip_real launches: build {build_launches}, evaluator "
+                             f"{real_launches}; {n_batches} batches, {eval_chunks} chunks")
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -746,28 +1045,33 @@ def main() -> int:
                            queries_per_label=EVAL_QUERIES_PER_LABEL,
                            distractors=EVAL_DISTRACTORS, real_records=EVAL_REAL_RECORDS,
                            clips=CLIPS, frames=FRAMES, crop=CROP)
+        clip = phase_clip(dev, workdir, os.path.join(workdir, "best.pth.tar"),
+                          videos=CLIP_VIDEOS, queries=CLIP_QUERIES, labels=CLIP_LABELS,
+                          real_videos=CLIP_REAL_VIDEOS, clips=CLIPS, frames=FRAMES, crop=CROP,
+                          clip_sec=CLIP_SEC)
 
     k1_main = k1[0]  # (16, 7670, 512): the smoke's gallery at a full query bucket
     k1_eval = next(r for r in k1 if tuple(r["shape"]) == K1_EVAL_CHUNK)
+    k1_clip = next(r for r in k1 if tuple(r["shape"]) == K1_CLIP_CHUNK)
     k2_main = k2[0]  # an embed batch in fp32, the serving dtype
-    launches = {k: serve["launches"][k] + evald["launches"][k] for k in serve["launches"]}
+    paths = {"serve": serve["launches"], "eval": evald["launches"], "clip": clip["launches"]}
+    launches = {k: sum(p[k] for p in paths.values()) for k in serve["launches"]}
+    chunk_keys = ("shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
         {"name": "sq_l2", "route": "cuda", "source": "vqwild_tpu_torch/csrc/sq_l2.cu",
          "replaces": "vqwild_tpu/ops/pallas_kernels.py:53",
          "launches": launches["sq_l2"],
-         "launches_by_path": {"serve": serve["launches"]["sq_l2"],
-                              "eval": evald["launches"]["sq_l2"]},
+         "launches_by_path": {k: p["sq_l2"] for k, p in paths.items()},
          "max_abs_err": max(r["max_abs_err"] for r in k1),
          "ms": k1_main["kernel_ms"], "plain_ms": k1_main["plain_ms"],
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"].split(",")[0],
          "library_ms": k1_main["library_ms"], "shape": k1_main["shape"],
-         "eval_chunk": {k: k1_eval[k] for k in ("shape", "kernel_ms", "plain_ms", "bound_ms",
-                                                 "bound_by", "library_ms")}},
+         "eval_chunk": {k: k1_eval[k] for k in chunk_keys},
+         "clip_chunk": {k: k1_clip[k] for k in chunk_keys}},
         {"name": "stem_s2d_pool", "route": "cuda", "source": "vqwild_tpu_torch/csrc/stem_pool.cu",
          "replaces": "vqwild_tpu/ops/pallas_kernels.py:152",
          "launches": launches["stem_s2d_pool"],
-         "launches_by_path": {"serve": serve["launches"]["stem_s2d_pool"],
-                              "eval": evald["launches"]["stem_s2d_pool"]},
+         "launches_by_path": {k: p["stem_s2d_pool"] for k, p in paths.items()},
          "max_abs_err": k2_main["max_abs_err"],
          "ms": k2_main["kernel_ms"], "plain_ms": k2_main["plain_ms"],
          "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"].split(",")[0],

@@ -309,6 +309,21 @@ class TestGalleryScorerEvalState:
                                       np.asarray(jscorer.scores_from_bank(q_rows)))
         assert scorer.q_bank.shape == (48, 16)
 
+    @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float16])
+    def test_scores_out_dtype_casts_on_the_device(self, out_dtype):
+        """``scores(out_dtype=...)`` is the fp32 scores cast to that type,
+        as the JAX scorer's ``scores(qfeats, out_dtype)``."""
+        from vqwild_tpu.retrieval.sharded import GalleryScorer as JaxScorer
+
+        scorer, (gallery, *_) = self._scorer()
+        q = np.random.default_rng(4).normal(size=(5, 16)).astype(np.float32)
+        full = scorer.scores(q)
+        got = scorer.scores(q, out_dtype=out_dtype)
+        assert full.dtype == torch.float32 and got.dtype == out_dtype
+        assert torch.equal(got, full.to(out_dtype))
+        want = np.asarray(JaxScorer(gallery).scores(q), np.float32)
+        np.testing.assert_allclose(full.numpy(), want, rtol=1e-5, atol=1e-4)
+
     def test_state_must_be_set_first(self):
         scorer = GalleryScorer(np.zeros((4, 8), np.float32), device="cpu")
         with pytest.raises(AssertionError, match="set_query_bank"):

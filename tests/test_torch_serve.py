@@ -260,7 +260,7 @@ class TestServerEntryPoint:
 
     @pytest.mark.parametrize("extra,exc", [
         (["--regime", "moment"], NotImplementedError),
-        (["--regime", "clip"], NotImplementedError),
+        (["--regime", "moment", "--no_embed"], NotImplementedError),
         (["--trunk_int8"], NotImplementedError),
     ])
     def test_unported_options_raise(self, tmp_path, extra, exc):
@@ -356,10 +356,11 @@ class TestPortRules:
         """The port and its smoke import torch, numpy and the standard
         library: never jax, flax or the JAX package."""
         files = sorted((REPO / "vqwild_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-        # every module of the port: the serving slice's 21 and the data,
-        # ranking and evaluator modules that came after
-        assert len(files) >= 40
-        assert {"data/frames.py", "ops/ranking.py", "retrieval/trimmed.py", "apps/cli.py"} <= {
+        # every module of the port: the serving slice's 21, the data,
+        # ranking and trimmed-evaluator modules, and the clip regime's
+        assert len(files) >= 43
+        assert {"data/frames.py", "ops/ranking.py", "retrieval/trimmed.py", "apps/cli.py",
+                "data/longvideo.py", "ops/segment_pool.py", "retrieval/clip.py"} <= {
             str(f.relative_to(REPO / "vqwild_tpu_torch")) for f in files[:-1]}
         bad = []
         for f in files:

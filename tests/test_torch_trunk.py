@@ -3,6 +3,7 @@ JAX package, on the CPU. Weights and inputs are made with numpy from a seed
 and handed to both sides."""
 
 import os
+import pickle
 from types import SimpleNamespace
 
 import jax
@@ -133,6 +134,29 @@ class TestResNet18F2F:
             load_reference_checkpoint(path, device="cpu")
 
 
+    def test_reference_checkpoint_with_numpy_score_and_adam_state(self, narrow, tmp_path):
+        """The reference's own save: a numpy ``score`` and a real optimizer
+        state beside the state_dict. It loads, and the trunk is the saved
+        one."""
+        saved = trunk_from_state_dict(state_dict_from_jax(narrow.vars))
+        opt = torch.optim.Adam(saved.parameters(), lr=1e-4)
+        loss = saved(torch.from_numpy(narrow.x)).square().mean()
+        loss.backward()
+        opt.step()
+        sd = {"module." + k: v for k, v in saved.state_dict().items()}
+        path = str(tmp_path / "best.pth.tar")
+        torch.save({"epoch": 3, "state_dict": sd, "score": np.float64(0.41),
+                    "optimizer": opt.state_dict()}, path)
+        with pytest.raises(pickle.UnpicklingError):
+            torch.load(path, map_location="cpu", weights_only=True)
+        model = load_reference_checkpoint(path, device="cpu")
+        want = saved.state_dict()
+        got = model.state_dict()
+        assert set(got) == set(want)
+        for k, v in want.items():
+            assert torch.equal(got[k], v), k
+
+
 class TestFoldTransforms:
     @pytest.mark.parametrize("s2d", [False, True])
     def test_fold_trunk_params_equal_jax(self, full, s2d):
@@ -162,6 +186,43 @@ class TestFoldTransforms:
         x = np.random.default_rng(5).standard_normal((2, 8, 6, 3)).astype(np.float32)
         np.testing.assert_array_equal(fold.space_to_depth(torch.from_numpy(x)).numpy(),
                                       np.asarray(jfold.space_to_depth(x)))
+
+
+    @pytest.mark.parametrize("entry", ["make_folded_trunk", "make_embed_fn", "make_feat_fn"])
+    def test_nondefault_bn_eps_threads_through_folding(self, full, entry):
+        """The twin of the JAX package's test: a trunk whose BNs were
+        trained with eps 0.1 folds with that eps through every entry point,
+        equal to the JAX fold, and unequal to a fold at the default 1e-3
+        (the downsample BNs keep 1e-5 in both)."""
+        eps = 1e-1
+        rng = np.random.default_rng(9)
+        x = rng.standard_normal((2, 2, 32, 32, 3)).astype(np.float32)
+        rgb = rng.integers(0, 256, (2, 2, 32, 32, 3), dtype=np.uint8)
+
+        def port(bn_eps):
+            if entry == "make_folded_trunk":
+                m = fold.make_folded_trunk(full.sd, bn_eps=bn_eps, device="cpu")
+                with torch.no_grad():
+                    return m(torch.from_numpy(x)).numpy()
+            if entry == "make_embed_fn":
+                f = fold.make_embed_fn(full.sd, dtype=torch.float32, stem_mode="conv7",
+                                       bn_eps=bn_eps, device="cpu")
+                return f(torch.from_numpy(rgb)).numpy()
+            return make_feat_fn(trunk_from_state_dict(full.sd), wire="rgb", bn_eps=bn_eps,
+                                device="cpu")(rgb)
+
+        if entry == "make_folded_trunk":
+            im, iv = jfold.make_folded_trunk(full.vars, bn_eps=eps)
+            want = np.asarray(im.apply(iv, jnp.asarray(x)))
+        elif entry == "make_embed_fn":
+            want = np.asarray(jfold.make_embed_fn(full.vars, dtype=jnp.float32,
+                                                  stem_mode="conv7", bn_eps=eps)(rgb))
+        else:
+            want = jax_make_feat_fn(SimpleNamespace(dtype=jnp.float32, bn_eps=eps), full.vars,
+                                    wire="rgb")(rgb)
+        got = port(eps)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+        assert np.abs(port(1e-3) - want).max() > 1e-3
 
 
 class TestPreprocess:

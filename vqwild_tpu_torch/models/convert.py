@@ -83,9 +83,16 @@ def trunk_from_state_dict(sd: Mapping[str, torch.Tensor]) -> ResNet18F2F:
 def load_reference_checkpoint(path: str, device: Union[str, torch.device] = "cuda") -> ResNet18F2F:
     """A reference-format ``best.pth.tar`` (baseline, va or vasa; keys
     optionally ``module.``-prefixed) → its trunk as an eval ``ResNet18F2F``
-    on ``device``. Head entries are ignored; the trunk loads strictly."""
+    on ``device``. Head entries are ignored; the trunk loads strictly.
+
+    The reference saves ``{epoch, state_dict, score, optimizer}`` with a
+    numpy ``score``, which plain ``weights_only=True`` refuses. The file is
+    read with ``weights_only=True`` and the numpy scalar, ndarray and dtype
+    reconstructors allowed (``_numpy_safe_globals``), never with
+    ``weights_only=False``: no other global can run while it loads."""
     dev = resolve_device(device)
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    with torch.serialization.safe_globals(_numpy_safe_globals()):
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt["state_dict"] if "state_dict" in ckpt else ckpt
     trunk = {}
     for k, v in sd.items():
@@ -93,3 +100,18 @@ def load_reference_checkpoint(path: str, device: Union[str, torch.device] = "cud
         if k.split(".", 1)[0] not in _NON_TRUNK:
             trunk[k] = v
     return trunk_from_state_dict(trunk).to(dev)
+
+
+def _numpy_safe_globals() -> list:
+    """What a reference checkpoint's numpy entries need from the unpickler:
+    the scalar and ndarray reconstructors (under numpy 2's module name and
+    numpy 1's, whichever wrote the file), ``dtype``, ``ndarray`` and the
+    dtype classes."""
+    try:
+        from numpy._core.multiarray import _reconstruct, scalar
+    except ImportError:  # numpy < 2
+        from numpy.core.multiarray import _reconstruct, scalar
+    out = [np.dtype, np.ndarray]
+    out += [(f, f"{m}.{f.__name__}") for f in (scalar, _reconstruct)
+            for m in ("numpy.core.multiarray", "numpy._core.multiarray")]
+    return out + [getattr(np.dtypes, n) for n in np.dtypes.__all__]

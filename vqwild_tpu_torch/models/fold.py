@@ -109,11 +109,14 @@ def _block_names(sd: Mapping[str, Any]):
 
 
 def fold_trunk_params(state_dict: Mapping[str, Any], *,
-                      space_to_depth_stem: bool = False) -> Dict[str, dict]:
+                      space_to_depth_stem: bool = False,
+                      bn_eps: float = BN_EPS) -> Dict[str, dict]:
     """Trunk state_dict (reference layout) → folded HWIO weights, fp32 numpy:
     ``{"conv1": {"kernel", "bias"}, "layer{l}_{b}": {"conv1", "conv2"[,
     "downsample_conv"]}}``, the tree vqwild_tpu's ``fold_trunk_params``
-    returns. BN eps: block/stem 1e-3, downsample torch-default 1e-5."""
+    returns. BN eps: block/stem ``bn_eps`` (the trained module's,
+    ModelConfig.bn_eps, 1e-3 by default), downsample torch-default 1e-5
+    whatever ``bn_eps`` is (the reference quirk)."""
     sd = state_dict
 
     def fold(conv_key, bn_prefix, eps):
@@ -123,13 +126,13 @@ def fold_trunk_params(state_dict: Mapping[str, Any], *,
         )
         return {"kernel": k, "bias": b}
 
-    out = {"conv1": fold("conv1.weight", "bn1", BN_EPS)}
+    out = {"conv1": fold("conv1.weight", "bn1", bn_eps)}
     if space_to_depth_stem:
         out["conv1"]["kernel"] = stem_to_space_to_depth(out["conv1"]["kernel"])
     for prefix, name in _block_names(sd):
         blk = {
-            "conv1": fold(f"{prefix}.conv1.weight", f"{prefix}.bn1", BN_EPS),
-            "conv2": fold(f"{prefix}.conv2.weight", f"{prefix}.bn2", BN_EPS),
+            "conv1": fold(f"{prefix}.conv1.weight", f"{prefix}.bn1", bn_eps),
+            "conv2": fold(f"{prefix}.conv2.weight", f"{prefix}.bn2", bn_eps),
         }
         if f"{prefix}.downsample.0.weight" in sd:
             blk["downsample_conv"] = fold(
@@ -278,14 +281,15 @@ class ResNet18F2FInfer(nn.Module):
 
 
 def make_folded_trunk(state_dict: Mapping[str, Any], *, dtype=torch.float32,
-                      stem_mode: str = "conv7",
+                      stem_mode: str = "conv7", bn_eps: float = BN_EPS,
                       device: Union[str, torch.device] = "cuda") -> ResNet18F2FInfer:
     """The eval ``ResNet18F2FInfer`` on ``device`` in ``dtype`` from a trunk
-    state_dict (reference layout)."""
+    state_dict (reference layout); ``bn_eps`` as in ``fold_trunk_params``."""
     if stem_mode not in STEM_MODES:
         raise ValueError(f"unknown stem_mode {stem_mode!r}")
     dev = resolve_device(device)
-    folded = fold_trunk_params(state_dict, space_to_depth_stem=(stem_mode == "s2d"))
+    folded = fold_trunk_params(state_dict, space_to_depth_stem=(stem_mode == "s2d"),
+                               bn_eps=bn_eps)
     if stem_mode == "yuv_s2d":
         folded["conv1"]["kernel"] = stem_to_yuv_s2d(folded["conv1"]["kernel"])
     sizes, planes = [], []
@@ -299,7 +303,7 @@ def make_folded_trunk(state_dict: Mapping[str, Any], *, dtype=torch.float32,
 
 
 def make_embed_fn(state_dict: Mapping[str, Any], *, dtype=torch.bfloat16,
-                  stem_mode: str = "yuv_s2d",
+                  stem_mode: str = "yuv_s2d", bn_eps: float = BN_EPS,
                   device: Union[str, torch.device] = "cuda") -> Callable:
     """The serving embedding graph. Returns f whose signature matches the wire:
 
@@ -308,8 +312,10 @@ def make_embed_fn(state_dict: Mapping[str, Any], *, dtype=torch.bfloat16,
 
     taking tensors on ``device`` → L2-normalized frame embeddings [B, C, T]
     fp32. A float32 trunk on a GPU turns TF32 off (core.device.disable_tf32).
+    ``bn_eps`` is the trained module's block/stem BN epsilon.
     """
-    model = make_folded_trunk(state_dict, dtype=dtype, stem_mode=stem_mode, device=device)
+    model = make_folded_trunk(state_dict, dtype=dtype, stem_mode=stem_mode, bn_eps=bn_eps,
+                              device=device)
     if dtype == torch.float32 and next(model.parameters()).is_cuda:
         disable_tf32()
 

@@ -1,4 +1,5 @@
 from vqwild_tpu_torch.retrieval.aggregate import MetricAggregator
+from vqwild_tpu_torch.retrieval.clip import ARVRetrievalClip
 from vqwild_tpu_torch.retrieval.features import FeatureExtractor, make_fake_feat_fn, make_feat_fn
 from vqwild_tpu_torch.retrieval.multiquery import generate_multi_query
 from vqwild_tpu_torch.retrieval.sharded import GalleryScorer
@@ -6,6 +7,7 @@ from vqwild_tpu_torch.retrieval.trimmed import ARVRetrievalTrimmed
 
 __all__ = [
     "MetricAggregator",
+    "ARVRetrievalClip",
     "ARVRetrievalTrimmed",
     "FeatureExtractor",
     "GalleryScorer",

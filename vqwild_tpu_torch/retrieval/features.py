@@ -11,8 +11,8 @@ without a model.
 ``FeatureExtractor`` handles batching, the wire format (cropped uint8 RGB or
 4:2:0 planes — ops/preprocess.py) and the on-disk feature cache (the
 reference's feat_cache.pkl, :1450-1456 — a directory of memmap-able .npy
-files, the JAX package's format, so either package reads the other's).
-Long-video chunk tapes come with the clip and moment regimes.
+files, the JAX package's format, so either package reads the other's), and
+the per-video feature tapes of the untrimmed galleries.
 """
 
 from __future__ import annotations
@@ -32,27 +32,36 @@ from vqwild_tpu_torch.data.clips import (
     read_clip_yuv,
 )
 from vqwild_tpu_torch.data.frames import FrameStore
+from vqwild_tpu_torch.data.longvideo import (
+    enumerate_chunks,
+    read_chunk_batch,
+    read_chunk_batch_yuv,
+)
 from vqwild_tpu_torch.data.schema import VideoRecord
 from vqwild_tpu_torch.models.fold import make_embed_fn
-from vqwild_tpu_torch.models.resnet_f2f import ResNet18F2F
+from vqwild_tpu_torch.models.resnet_f2f import BN_EPS, ResNet18F2F
+from vqwild_tpu_torch.ops.hostmem import alloc_array
 from vqwild_tpu_torch.ops.preprocess import rgb_to_yuv420_host
 
 log = get_logger("retrieval.features")
 
 
 def make_feat_fn(trunk: ResNet18F2F, *, wire: str = "rgb", dtype=torch.float32,
+                 bn_eps: float = BN_EPS,
                  device: Union[str, torch.device] = "cuda") -> Callable:
     """Returns f(clips [B,T,s,s,C] uint8-cropped or float) → np [B, C, T].
 
     ``wire="yuv420"`` returns f(y [B,T,s,s] u8, uv [B,T,s/2,s/2,2] u8)
     instead; the chroma upsample, BT.601 and normalize then fold into the
     space-to-depth stem (fold.stem_to_yuv_s2d), which runs as kernel K2.
-    Both run the BN-folded trunk in ``dtype`` on ``device``."""
+    Both run the BN-folded trunk in ``dtype`` on ``device``, folded with the
+    trained module's block/stem BN epsilon ``bn_eps`` (ModelConfig.bn_eps)."""
     if wire not in ("rgb", "yuv420"):
         raise ValueError(f"unknown wire format {wire!r}")
     dev = resolve_device(device)
     fwd = make_embed_fn(trunk.state_dict(), dtype=dtype,
-                        stem_mode="yuv_s2d" if wire == "yuv420" else "conv7", device=dev)
+                        stem_mode="yuv_s2d" if wire == "yuv420" else "conv7", bn_eps=bn_eps,
+                        device=dev)
 
     def feat_fn(*arrays):
         tensors = [torch.as_tensor(np.asarray(a)).to(dev) for a in arrays]
@@ -185,9 +194,44 @@ class FeatureExtractor:
         return np.concatenate(feats, axis=0)
 
     def extract_video_tapes(self, gallery: Sequence[VideoRecord]) -> List[np.ndarray]:
-        """Per-video feature tapes from contiguous chunks, for the clip and
-        moment regimes."""
-        raise NotImplementedError("extract_video_tapes is not yet ported")
+        """Per-video feature tapes [C, T_total] from contiguous chunks
+        (dataloader_baseline.py:742-784). Videos left without chunks under a
+        debug cap get zero-length tapes, [C, 0] (or [0, 0] when no chunk is
+        read at all); callers skip them.
+
+        One [C, ΣT] arena is preallocated (ops/hostmem.alloc_array), each
+        tape is a view into it, and chunk features are written in place at
+        ``seg_id * test_frames``: at production scale (~60k chunks, several
+        GB of tape) a gather-then-regroup materializes the whole feature
+        block twice and dominates the gallery build."""
+        refs = enumerate_chunks(gallery, self.store, self.test_frames)
+        if self.max_batches is not None:
+            refs = refs[: self.max_batches * self.test_batch_size]
+        n_chunks = np.zeros(len(gallery), np.int64)
+        for r in refs:
+            n_chunks[r.video_idx] += 1
+        t = self.test_frames
+        offsets = np.concatenate([[0], np.cumsum(n_chunks)]) * t
+        arena: Optional[np.ndarray] = None
+        tapes: List[np.ndarray] = []
+        for ref_batch in _chunks(refs, self.test_batch_size):
+            if self.fake:
+                f = self.feat_fn(np.zeros((len(ref_batch), t, 1, 1, 3), np.float32))
+            elif self.yuv_native:
+                f = self._embed_planes(*read_chunk_batch_yuv(
+                    ref_batch, gallery, self.store, t, self.input_size, self.fps))
+            else:
+                f = self._embed_cropped(read_chunk_batch(
+                    ref_batch, gallery, self.store, t, self.input_size, self.fps))
+            if arena is None:
+                arena = alloc_array((f.shape[1], int(offsets[-1])), np.float32)
+                tapes = [arena[:, offsets[vi] : offsets[vi + 1]] for vi in range(len(gallery))]
+            for feat, ref in zip(f, ref_batch):
+                base = ref.seg_id * t
+                tapes[ref.video_idx][:, base : base + t] = feat
+        if arena is None:  # no chunks at all
+            tapes = [np.empty((0, 0), np.float32) for _ in gallery]
+        return tapes
 
     # -- cache --
     #

@@ -184,7 +184,11 @@ class GalleryScorer:
         row index array instead of the [B, D] f32 features."""
         return gather_scores(self.q_bank, self.g_dev, self._ids(q_rows))
 
-    def scores(self, qfeats) -> torch.Tensor:
-        """[B, D] queries → [B, n_padded] scores −‖q−g‖² (device tensor)."""
+    def scores(self, qfeats, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """[B, D] queries → [B, n_padded] scores −‖q−g‖² (device tensor).
+
+        ``out_dtype`` casts on the device, before any readback: bf16 halves
+        the device→host bytes of a wide score matrix."""
         q = torch.as_tensor(qfeats, dtype=torch.float32).to(self.device).contiguous()
-        return score_matrix(q, self.g_dev)
+        s = score_matrix(q, self.g_dev)
+        return s if out_dtype is None else s.to(out_dtype)

@@ -7,12 +7,18 @@ over HTTP.
       --test_load best.pth.tar --meta_split 100_20_80 \
       --frame_store packed_yuv --frames_dir frames_yuv --port 8080
 
+  # the same from the untrimmed gallery videos of the split's moment DB:
+  # one row per non-overlapping --clip_sec window, meta {video_id, label,
+  # loc_sec}
+  python -m vqwild_tpu_torch.serve --regime clip --index_dir clip_index \
+      --test_load best.pth.tar --meta_split 100_20_80 --clip_sec 6 --port 8080
+
   # serve a prebuilt index (feature queries only, no model)
   python -m vqwild_tpu_torch.serve --index_dir gallery_index --no_embed --port 8080
 
 The flags are those of ``python -m vqwild_tpu.serve`` plus ``--device``
 (default ``cuda``; ``cpu`` must be asked for) and ``--dtype``. The index
-directory is the JAX server's format. ``--regime clip|moment`` and
+directory is the JAX server's format. ``--regime moment`` and
 ``--trunk_int8`` are not ported yet and raise.
 """
 
@@ -63,8 +69,8 @@ def main(argv=None, on_ready: Optional[Callable] = None) -> None:
                    help="trunk compute dtype (float32 runs with TF32 off)")
     args = p.parse_args(argv)
 
-    if args.regime != "trimmed":
-        raise NotImplementedError(f"--regime {args.regime} is not yet ported")
+    if args.regime == "moment":
+        raise NotImplementedError("--regime moment is not yet ported")
     if args.trunk_int8:
         raise NotImplementedError("--trunk_int8 is not yet ported")
     if os.path.exists(os.path.join(args.index_dir, "windows.npz")):
@@ -133,16 +139,20 @@ def _cfg(args):
 
 
 def _build_index(args, embed_fn, device):
-    """The trimmed gallery index of ``--eval_split``: every record of the
-    split (``--max_gallery`` caps it) embedded through the serving trunk."""
-    from vqwild_tpu_torch.apps.cli import build_data_stack
+    """The gallery index of ``--regime``, embedded through the serving
+    trunk. trimmed: every record of ``--eval_split``; clip: every
+    ``--clip_sec`` window of the moment DB's gallery videos (``--max_gallery``
+    caps the records or the videos)."""
+    from vqwild_tpu_torch.apps.cli import build_data_stack, resolve_data_file
+    from vqwild_tpu_torch.data.schema import load_moment_db
+    from vqwild_tpu_torch.retrieval.clip import ARVRetrievalClip
     from vqwild_tpu_torch.retrieval.features import FeatureExtractor
     from vqwild_tpu_torch.serve.index import GalleryIndex
 
     if embed_fn is None:
         raise SystemExit("--no_embed requires an existing --index_dir")
     cfg = _cfg(args)
-    _, db, store = build_data_stack(cfg)
+    spec, db, store = build_data_stack(cfg)
     extractor = FeatureExtractor(
         embed_fn, store,
         test_frames=cfg.data.test_frame,
@@ -151,7 +161,22 @@ def _build_index(args, embed_fn, device):
         wire="yuv420",
     )
     cap = args.max_gallery or None
-    return GalleryIndex.build(db.flat(args.eval_split)[:cap], extractor, device=device)
+    if args.regime == "trimmed":
+        return GalleryIndex.build(db.flat(args.eval_split)[:cap], extractor, device=device)
+
+    mdb = load_moment_db(resolve_data_file(spec.moment_db_json, args.data_root))
+    ev = ARVRetrievalClip(mdb, spec, extractor, clip_sec=args.clip_sec, device=device)
+    ev.gallery_videos = ev.gallery_videos[:cap]
+    feats, labels, vidx, locs = ev.build_gallery()
+    meta = [
+        {
+            "video_id": ev.gallery_videos[int(vidx[i])].video_id,
+            "label": str(labels[i]),
+            "loc_sec": [float(locs[i, 0]), float(locs[i, 1])],
+        }
+        for i in range(feats.shape[0])
+    ]
+    return GalleryIndex(feats, meta, device=device)
 
 
 def _build_embed_fn(args, device, dtype, log):
@@ -168,7 +193,8 @@ def _build_embed_fn(args, device, dtype, log):
             "(fine for smoke tests, meaningless for real retrieval)"
         )
         trunk = ResNet18F2F().eval()
-    return make_feat_fn(trunk, wire="yuv420", dtype=dtype, device=device)
+    return make_feat_fn(trunk, wire="yuv420", dtype=dtype, bn_eps=_cfg(args).model.bn_eps,
+                        device=device)
 
 
 if __name__ == "__main__":
