@@ -75,8 +75,37 @@ Phases, each printing one JSON line:
                 then ARVRetrievalClip with the real extractor over the same
                 videos: gallery features equal to the index's within 1e-5,
                 clips/s of extract_video_tapes.
-  (h) kernels — one {"kernels": [...]} line; ``launches`` counts the serve,
-                eval and clip phases together.
+  (h) moment  — the untrimmed moment regime on the host engine, with the
+                launch counters zeroed just before and read just after. The
+                clip phase's moment DB (4,900 videos). "moment_fake":
+                ARVRetrievalMoment on seeded fake 512-d features over every
+                moment window of 1-26 x 5 s (1,466,542 windows, a 3.0 GB
+                gallery), the queries cut to 512 (4 chunks of 128; printed
+                as ``reduced``): the native C++ postprocess must be the
+                engine, K1 once per chunk, metrics finite and in [0, 1],
+                the seven timings, GB of gallery and of score readback;
+                then the first tenth of the videos on the card and with
+                device="cpu" (256 queries), every metric within 1e-3.
+                "moment_serve": a MomentIndex of those 1.47M windows behind
+                the port's HTTP server; /query/moments (k = 10) for 32
+                short windows' own features, sequential and 8-way
+                concurrent: each window back at rank 0, p50 latency; the
+                pool's top-k (4,096 of 1.47M) by the full stable sort and
+                by torch.topk + a stable sort of the pool, timed at B = 1
+                and 16 and held equal; one chunk's [128, G] scores read
+                back into pageable and into pinned memory, and the native
+                postprocess of 16 of its rows on 1 and on 8 threads (line
+                "moment_serve", key moment_host_costs). "moment_real": the
+                server's entry point with --regime moment and no index on
+                disk builds the moment index of 64 videos from the
+                synthetic frame store (K2 once per embed batch) and saves
+                it; the most distinct window's own feature brings it back
+                at rank 0; a second server loads the saved index
+                (--no_embed) and answers identically; then
+                ARVRetrievalMoment with the real extractor over the same
+                videos: gallery features equal to the index's within 1e-5.
+  (i) kernels — one {"kernels": [...]} line; ``launches`` counts the serve,
+                eval, clip and moment phases together.
 
 Then the card's name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -106,13 +135,16 @@ TF32_FLOPS = 495e12  # H100 SXM, TF32 tensor cores, dense
 
 # the smoke's gallery at a full query bucket and at one query (a sequential
 # request), a gallery four times the L2 cache, two ragged shapes, a rank
-# chunk of the trimmed and of the clip evaluator
-K1_SHAPES = [(16, 7670, 512), (16, 100000, 512), (1, 7670, 512), (5, 130, 512), (300, 1000, 64),
-             (256, 7670, 512), (256, 100000, 512)]
+# chunk of the trimmed, of the clip and of the moment evaluator
 K1_EVAL_CHUNK = (256, 7670, 512)  # one rank chunk of the trimmed evaluator
 K1_CLIP_CHUNK = (256, 100000, 512)  # one rank chunk of the clip evaluator
+# one rank chunk of the moment evaluator over the moment phase's gallery:
+# every window of 1-26 x 5 s of the 4,900 videos (phase_moment checks the count)
+K1_MOMENT_CHUNK = (128, 1466542, 512)
+K1_SHAPES = [(16, 7670, 512), (16, 100000, 512), (1, 7670, 512), (5, 130, 512), (300, 1000, 64),
+             K1_EVAL_CHUNK, K1_CLIP_CHUNK, K1_MOMENT_CHUNK]
 # galleries that cannot sit in L2: their times are held to their bounds
-K1_BEYOND_L2 = ((16, 100000, 512), K1_CLIP_CHUNK)
+K1_BEYOND_L2 = ((16, 100000, 512), K1_CLIP_CHUNK, K1_MOMENT_CHUNK)
 # an embed batch (30 clips x 32 frames) in both types, a clip query in fp32
 K2_CASES = [((960, 56, 56, 6), ("float32", "bfloat16")), ((32, 56, 56, 6), ("float32",))]
 K2_ATOL = {"float32": 1e-4, "bfloat16": 0.05}
@@ -127,6 +159,9 @@ EVAL_METRIC_TOL = 1e-3
 # make 2 chunks each, so 64 videos give 128 chunks (5 embed batches)
 CLIP_VIDEOS, CLIP_QUERIES, CLIP_LABELS, CLIP_SEC = 4900, 1800, 100, 6
 CLIP_REAL_VIDEOS = 64
+# the moment phase: the clip phase's DB, windows of 1..26 x 5 s; the 1,800
+# queries cut to 512 (4 chunks of 128) to bound the host postprocess
+MOMENT_CLIP_SEC, MOMENT_MAX_CLIPS, MOMENT_QUERY_CAP, MOMENT_REAL_VIDEOS = 5, 26, 512, 64
 
 
 def emit(obj) -> None:
@@ -1011,6 +1046,368 @@ def phase_clip(dev, workdir, ckpt, *, videos, queries, labels, real_videos, clip
     return {"launches": launches}
 
 
+def full_sort_topk(scores, k: int):
+    """The serving index's top-k (serve/index._masked_topk): one stable
+    descending sort of the whole row, the lower column first on a tie."""
+    import torch
+
+    top_s, top_i = torch.sort(scores, dim=1, descending=True, stable=True)
+    return top_s[:, :k], top_i[:, :k]
+
+
+def topk_then_pool_sort(scores, k: int):
+    """``full_sort_topk``'s result without sorting the whole row, the
+    alternative the moment phase times against it: ``torch.topk`` picks the
+    pool, which is put in order by a stable sort on the column and then on
+    the score. Which of several columns tied at the pool's lowest score
+    ``torch.topk`` keeps is not specified; where it dropped one (a row holds
+    more of that score than the pool does), the whole row is sorted."""
+    import torch
+
+    if k >= scores.shape[1]:
+        return full_sort_topk(scores, k)
+    top_s, top_i = torch.topk(scores, k, dim=1)
+    floor = top_s[:, -1:]
+    if torch.equal((scores == floor).sum(1), (top_s == floor).sum(1)):
+        top_i, by_col = torch.sort(top_i, dim=1)
+        top_s = top_s.gather(1, by_col)
+        top_s, by_score = torch.sort(top_s, dim=1, descending=True, stable=True)
+        return top_s, top_i.gather(1, by_score)
+    return full_sort_topk(scores, k)
+
+
+def worst_entry(a, b, path="result"):
+    """(path, |a - b|) of the largest difference between two metric dicts
+    of one structure (``tree_max_diff``'s maximum, located)."""
+    if isinstance(a, dict):
+        return max((worst_entry(a[k], b[k], f"{path}[{k!r}]") for k in a),
+                   key=lambda t: t[1], default=(path, 0.0))
+    if isinstance(a, (list, tuple)):
+        return max((worst_entry(x, y, f"{path}[{i}]") for i, (x, y) in enumerate(zip(a, b))),
+                   key=lambda t: t[1], default=(path, 0.0))
+    if isinstance(a, (str, bool, type(None))):
+        return path, 0.0
+    return path, abs(float(a) - float(b))
+
+
+def distinct_window(feats):
+    """The row whose nearest other row is farthest (float64 on the host),
+    and that distance: a query with its feature must bring it back first
+    even through K1's 3xTF32 rounding (~1e-6 on unit rows)."""
+    f = feats.astype(np.float64)
+    sq = (f * f).sum(1)
+    d = sq[:, None] + sq[None, :] - 2.0 * f @ f.T
+    np.fill_diagonal(d, np.inf)
+    nearest = d.min(1)
+    row = int(nearest.argmax())
+    return row, float(nearest[row])
+
+
+def short_windows(vidx, s_sec, e_sec, n, longest=10.0):
+    """``n`` rows spread over the gallery whose windows last at most
+    ``longest`` seconds: a short window's pooled feature is far from every
+    other window's, so its own query must bring it back at rank 0."""
+    rows = np.flatnonzero(e_sec - s_sec <= longest)
+    return [int(r) for r in rows[np.linspace(0, len(rows) - 1, n).astype(int)]]
+
+
+def phase_moment(dev, workdir, ckpt, *, videos, queries, labels, query_cap, real_videos, clips,
+                 frames, crop, moment_clip_sec, max_clips, feat_dim=512, rank_chunk=128,
+                 serve_queries=32, serve_conc=8, serve_k=10, pool=4096):
+    import torch
+
+    from vqwild_tpu_torch.data.frames import SyntheticFrameStore
+    from vqwild_tpu_torch.data.labels import get_split
+    from vqwild_tpu_torch.data.schema import load_moment_db
+    from vqwild_tpu_torch.models.convert import load_reference_checkpoint
+    from vqwild_tpu_torch.ops import distance, stem_pool
+    from vqwild_tpu_torch.retrieval import (
+        ARVRetrievalMoment, FeatureExtractor, make_fake_feat_fn, make_feat_fn,
+    )
+    from vqwild_tpu_torch.serve.__main__ import main as serve_main
+    from vqwild_tpu_torch.serve.http import make_server
+    from vqwild_tpu_torch.serve.index import MomentIndex
+    from vqwild_tpu_torch.serve.service import QueryService
+
+    def counts():
+        return {"sq_l2": distance.launches.n, "stem_s2d_pool": stem_pool.launches.n}
+
+    def since(before):
+        return {k: v - before[k] for k, v in counts().items()}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    spec_path, video_frames = write_moment_db(workdir, videos=videos, queries=queries,
+                                              labels=labels, seed=8)
+    distance.launches.reset()
+    stem_pool.launches.reset()
+    # ---- the moment path, from here to the counter read at the end ----
+    spec = get_split(spec_path)
+    mdb = load_moment_db(spec.moment_db_json)
+    n_all_queries = len(mdb.nonnoise_queries())
+
+    # (a) seeded fake features over the whole gallery, the queries cut to
+    # ``query_cap``; the built gallery is kept for the serving part
+    def fake_eval(device, n_queries, gallery=None, keep=None):
+        ex = FeatureExtractor(make_fake_feat_fn(feat_dim, seed=10), length_store(video_frames),
+                              test_frames=frames, test_batch_size=clips, fake=True)
+        ev = ARVRetrievalMoment(mdb, spec, ex, moment_clip_sec=moment_clip_sec,
+                                max_clips_per_moment=max_clips, rank_chunk=rank_chunk,
+                                device=device, engine="host")
+        ev.queries = ev.queries[:n_queries]
+        if gallery is not None:
+            ev.gallery_videos = ev.gallery_videos[:gallery]
+        if keep is not None:
+            build = ev.build_gallery
+
+            def build_and_keep():
+                keep["gallery"] = build()
+                return keep["gallery"]
+
+            ev.build_gallery = build_and_keep
+        t0 = time.perf_counter()
+        result = ev.evaluation()
+        if ev.resolved_engine != "native":
+            raise AssertionError(f"moment postprocess ran on {ev.resolved_engine!r}, not the "
+                                 "native engine: the host build failed")
+        return result, ev.timings, time.perf_counter() - t0
+
+    keep = {}
+    before = counts()
+    got, timings, wall_s = fake_eval(dev, query_cap, keep=keep)
+    sync()
+    fake_launches = since(before)
+    feats, vidx, s_sec, e_sec, _, _ = keep["gallery"]
+    n_windows = feats.shape[0]
+    n_chunks = -(-query_cap // rank_chunk)
+    numbers = tree_numbers(got)
+    emit({"phase": "moment_fake", "gallery_videos": videos, "moment_windows": n_windows,
+          "max_windows_per_video": int(np.bincount(vidx).max()),
+          "moment_clip_sec": moment_clip_sec, "max_clips_per_moment": max_clips,
+          "queries": query_cap, "chunks": n_chunks, "rank_chunk": rank_chunk,
+          "feat_dim": feat_dim, "reduced": {"queries": [query_cap, n_all_queries]},
+          "gallery_gb": feats.nbytes / 1e9,
+          "score_readback_gb": query_cap * n_windows * 4 / 1e9,
+          "ap": got["map05"]["ap"], "o1_class_agnostic_map": got["map05"]["o1_class_agnostic_map"],
+          "timings_s": timings, "postprocess_ms_per_query": 1e3 * timings["postprocess"] / query_cap,
+          "score_readback_gb_per_s": query_cap * n_windows * 4 / 1e9 / timings["score_readback"],
+          "wall_s": wall_s, "resolved_engine": "native", "launches": fake_launches})
+    if not numbers or not all(np.isfinite(x) and 0.0 <= x <= 1.0 for x in numbers):
+        raise AssertionError(f"moment_fake metrics outside [0, 1]: {got}")
+    if set(timings) != {"query_feats", "tape_build", "window_pool", "gallery_to_device",
+                        "score_device", "score_readback", "postprocess"}:
+        raise AssertionError(f"moment_fake timings: {sorted(timings)}")
+    if dev.type == "cuda" and fake_launches != {"sq_l2": n_chunks, "stem_s2d_pool": 0}:
+        raise AssertionError(f"moment_fake: launches {fake_launches}, expected K1 once per "
+                             f"chunk ({n_chunks} chunks)")
+
+    # the first tenth of the videos: the card against the CPU path
+    tenth, small_q = videos // 10, 2 * rank_chunk
+    want_small = fake_eval("cpu", small_q, gallery=tenth)[0]
+    got_small, small_timings = fake_eval(dev, small_q, gallery=tenth)[:2]
+    diff = tree_max_diff(got_small, want_small)
+    emit({"phase": "moment_fake_vs_cpu", "gallery_videos": tenth, "queries": small_q,
+          "metrics_max_abs_diff_vs_cpu": diff, "tol": EVAL_METRIC_TOL,
+          "largest_diff_at": worst_entry(got_small, want_small)[0],
+          "ap": got_small["map05"]["ap"], "timings_s": small_timings})
+    if not diff <= EVAL_METRIC_TOL:
+        raise AssertionError(f"moment: card and CPU metrics differ by {diff} > {EVAL_METRIC_TOL}")
+
+    # (b) /query/moments over the fake gallery's MomentIndex, sequential and
+    # ``serve_conc``-way concurrent; then the pool's top-k two ways
+    t0 = time.perf_counter()
+    index = MomentIndex(feats, [v.video_id for v in mdb.gallery], vidx, s_sec, e_sec, device=dev)
+    sync()
+    index_s = time.perf_counter() - t0
+    del keep, feats
+    service = QueryService(index, moment_index=index, max_wait_ms=5.0)
+    server = make_server(service, port=0)
+    srv_thread = threading.Thread(target=server.serve_forever, daemon=True)
+    srv_thread.start()
+    g = index.scorer.g_dev
+    rows = short_windows(vidx, s_sec, e_sec, serve_queries)
+    url = f"http://127.0.0.1:{server.server_address[1]}/query/moments"
+
+    def moment_req(r):
+        body, ms = post(url, json.dumps({"feature": g[r].tolist(), "k": serve_k}).encode())
+        top = body["results"][0]
+        if (top["video_id"] != mdb.gallery[int(vidx[r])].video_id or top["rank"] != 0
+                or top["start_sec"] != s_sec[r] or top["end_sec"] != e_sec[r]
+                or len(body["results"]) != serve_k):
+            raise AssertionError(f"moment query for window {r} answered {top}")
+        return ms
+
+    try:
+        concurrently([(lambda r=r: moment_req(r)) for r in rows[:serve_conc]])  # warm-up
+        seq = [moment_req(r) for r in rows]
+        conc = []
+        for i in range(0, len(rows), serve_conc):
+            conc += concurrently([(lambda r=r: moment_req(r)) for r in rows[i:i + serve_conc]])
+    finally:
+        server.shutdown()
+        srv_thread.join(timeout=60)
+        server.server_close()
+        service.close()
+    topk_ms = {}
+    for b in (1, 16):
+        scores = index.scorer.scores(g[rows[:b]].contiguous())
+        got_k, want_k = topk_then_pool_sort(scores, pool), full_sort_topk(scores, pool)
+        if not (torch.equal(got_k[0], want_k[0]) and torch.equal(got_k[1], want_k[1])):
+            raise AssertionError(f"topk_then_pool_sort differs from the full sort at B = {b}")
+        if dev.type == "cuda":
+            topk_ms[f"b{b}"] = {
+                "full_stable_sort_ms": time_ms(lambda: full_sort_topk(scores, pool)),
+                "topk_then_pool_sort_ms": time_ms(lambda: topk_then_pool_sort(scores, pool))}
+    # the evaluation's two host costs measured apart on one chunk's [128, G]
+    # scores: the readback into pageable (the evaluator's) or pinned memory,
+    # and the native postprocess on 1 thread or the evaluator's 8
+    host_costs = {}
+    if dev.type == "cuda":
+        from vqwild_tpu_torch.native import lib as native_lib
+        from vqwild_tpu_torch.ops.hostmem import alloc_array
+
+        block = index.scorer.scores(g[:rank_chunk].contiguous())
+        for kind, buf in (("pageable", torch.from_numpy(alloc_array(tuple(block.shape)))),
+                          ("pinned", torch.empty(block.shape, pin_memory=True))):
+            secs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                buf.copy_(block)
+                secs.append(time.perf_counter() - t0)
+            host_costs[f"readback_{kind}_gb_per_s"] = block.numel() * 4 / 1e9 / float(np.median(secs))
+        del block
+        nq = 16
+        cols = dict(video_idx=vidx.astype(np.int32), start_sec=s_sec.astype(np.float32),
+                    end_sec=e_sec.astype(np.float32), hit_label=np.full(len(vidx), -1, np.int32),
+                    hit_iou=np.zeros(len(vidx), np.float32), q_label=np.zeros(nq, np.int32),
+                    ignore_vids=np.full((nq, 1), -1, np.int32))
+        for threads in (1, 8):
+            t0 = time.perf_counter()
+            native_lib.moment_batch(buf[:nq].numpy(), **cols, nms_thresh=0.5, tiou_thresh=0.5,
+                                    r_at_n=(30, 50, 100), robust=True, n_threads=threads)
+            host_costs[f"postprocess_ms_per_query_{threads}_threads"] = (
+                1e3 * (time.perf_counter() - t0) / nq)
+        host_costs["host_cpus"] = os.cpu_count()
+        del buf
+    emit({"phase": "moment_serve", "index_rows": index.n, "index_build_s": index_s, "k": serve_k,
+          "candidate_pool": pool, "queries": len(rows), "moment_host_costs": host_costs,
+          "moment_query_p50_ms_sequential": float(np.median(seq)),
+          f"moment_query_p50_ms_concurrent_{serve_conc}": float(np.median(conc)),
+          "masked_topk_at_moment_width": topk_ms, "self_window_rank0": True})
+    del index, service, g
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (c) the server builds, saves and serves the moment index of the first
+    # ``real_videos`` videos from the synthetic store through the trunk; a
+    # second server loads it; then the evaluator with the real extractor
+    store = SyntheticFrameStore()
+    real_chunks = sum(-(-store.num_frames("validation", v.video_id) // frames)
+                      for v in mdb.gallery[:real_videos])
+    n_batches = -(-real_chunks // clips)
+    index_dir = os.path.join(workdir, "moment_index")
+
+    def start_server(argv):
+        ready = threading.Event()
+        holder = {}
+
+        def on_ready(server):
+            holder["server"] = server
+            ready.set()
+
+        thread = threading.Thread(target=serve_main, args=(argv, on_ready), daemon=True)
+        thread.start()
+        if not ready.wait(timeout=600):
+            raise TimeoutError("moment server did not start")
+        return holder["server"], thread
+
+    def ask(server, feature):
+        body, _ = post(f"http://127.0.0.1:{server.server_address[1]}/query/moments",
+                       json.dumps({"feature": feature, "k": serve_k}).encode())
+        return body["results"]
+
+    argv = ["--index_dir", index_dir, "--port", "0", "--device", str(dev),
+            "--dtype", "float32", "--regime", "moment", "--moment_clip_sec", str(moment_clip_sec),
+            "--max_clips_per_moment", str(max_clips), "--meta_split", spec_path,
+            "--frame_store", "synthetic", "--max_gallery", str(real_videos),
+            "--input_size", str(crop), "--test_frame", str(frames),
+            "--test_batch_size", str(clips)]
+    before = counts()
+    t0 = time.perf_counter()
+    server, thread = start_server(argv + ["--test_load", ckpt])
+    build_s = time.perf_counter() - t0
+    try:
+        real_feats = np.load(os.path.join(index_dir, "feats.npy"))
+        with np.load(os.path.join(index_dir, "windows.npz")) as z:
+            r_vidx, r_start, r_end = z["video_idx"], z["start_sec"], z["end_sec"]
+        row, margin = distinct_window(real_feats)
+        built = ask(server, real_feats[row].tolist())
+    finally:
+        server.shutdown()
+        thread.join(timeout=60)
+    top = built[0]
+    if (top["video_id"] != mdb.gallery[int(r_vidx[row])].video_id or top["rank"] != 0
+            or top["start_sec"] != r_start[row] or top["end_sec"] != r_end[row]):
+        raise AssertionError(f"moment query for built window {row} answered {top}")
+    build_launches = since(before)
+    server, thread = start_server(["--index_dir", index_dir, "--port", "0", "--device", str(dev),
+                                   "--no_embed"])
+    try:
+        loaded = ask(server, real_feats[row].tolist())
+    finally:
+        server.shutdown()
+        thread.join(timeout=60)
+    if loaded != built:
+        raise AssertionError(f"the loaded moment index answered {loaded[:1]}, the built one "
+                             f"{built[:1]}")
+
+    before = counts()
+    feat_fn = make_feat_fn(load_reference_checkpoint(ckpt, device=dev), wire="yuv420",
+                           dtype=torch.float32, device=dev)
+    ex = FeatureExtractor(feat_fn, store, test_frames=frames, test_batch_size=clips,
+                          input_size=crop, wire="yuv420", max_batches=n_batches,
+                          cache_dir=os.path.join(workdir, "moment_real_cache"))
+    ev = ARVRetrievalMoment(mdb, spec, ex, moment_clip_sec=moment_clip_sec,
+                            max_clips_per_moment=max_clips, rank_chunk=rank_chunk, device=dev)
+    ev.gallery_videos = ev.gallery_videos[:real_videos]
+    result = ev.evaluation()
+    sync()
+    real_launches = since(before)
+    ev_feats = np.load(os.path.join(workdir, "moment_real_cache", "moment_gallery", "feats.npy"))
+    feats_err = (float(np.abs(ev_feats - real_feats).max())
+                 if ev_feats.shape == real_feats.shape else None)
+    numbers = tree_numbers(result)
+    kept = min(n_batches * clips, n_all_queries)
+    eval_chunks = -(-kept // rank_chunk)
+    launches = counts()
+    # ---- end of the moment path ----
+    emit({"phase": "moment_real", "gallery_videos": real_videos, "chunks": real_chunks,
+          "embed_batches": n_batches, "clips_per_batch": clips, "frames": frames, "crop": crop,
+          "moment_windows": real_feats.shape[0], "index_build_s": build_s,
+          "timings_s": ev.timings, "resolved_engine": ev.resolved_engine,
+          "feats_max_abs_diff_vs_index": feats_err, "ap": result["map05"]["ap"],
+          "self_window_rank0": True, "loaded_index_same_answer": True,
+          "window": [top["video_id"], top["start_sec"], top["end_sec"]],
+          "window_row": row, "window_nearest_sq_dist": margin,
+          "launches_build_and_query": build_launches, "launches_evaluator": real_launches,
+          "phase_s": time.perf_counter() - t_phase, "launches": launches})
+    if feats_err is None or feats_err > 1e-5:
+        raise AssertionError(f"evaluator moment features differ from the index's: {feats_err}")
+    if not numbers or not all(np.isfinite(x) and 0.0 <= x <= 1.0 for x in numbers):
+        raise AssertionError(f"moment_real metrics outside [0, 1]: {result}")
+    if dev.type == "cuda" and (build_launches["stem_s2d_pool"] != n_batches
+                               or build_launches["sq_l2"] < 1
+                               or real_launches["stem_s2d_pool"] != 2 * n_batches
+                               or real_launches["sq_l2"] != eval_chunks):
+        raise AssertionError(f"moment_real launches: build {build_launches}, evaluator "
+                             f"{real_launches}; {n_batches} batches, {eval_chunks} chunks")
+    return {"launches": launches, "windows": n_windows}
+
+
 def main() -> int:
     import torch
 
@@ -1049,12 +1446,22 @@ def main() -> int:
                           videos=CLIP_VIDEOS, queries=CLIP_QUERIES, labels=CLIP_LABELS,
                           real_videos=CLIP_REAL_VIDEOS, clips=CLIPS, frames=FRAMES, crop=CROP,
                           clip_sec=CLIP_SEC)
+        moment = phase_moment(dev, workdir, os.path.join(workdir, "best.pth.tar"),
+                              videos=CLIP_VIDEOS, queries=CLIP_QUERIES, labels=CLIP_LABELS,
+                              query_cap=MOMENT_QUERY_CAP, real_videos=MOMENT_REAL_VIDEOS,
+                              clips=CLIPS, frames=FRAMES, crop=CROP,
+                              moment_clip_sec=MOMENT_CLIP_SEC, max_clips=MOMENT_MAX_CLIPS)
+    if moment["windows"] != K1_MOMENT_CHUNK[1]:
+        raise AssertionError(f"the moment gallery has {moment['windows']} windows; K1 was timed "
+                             f"at {K1_MOMENT_CHUNK}")
 
     k1_main = k1[0]  # (16, 7670, 512): the smoke's gallery at a full query bucket
     k1_eval = next(r for r in k1 if tuple(r["shape"]) == K1_EVAL_CHUNK)
     k1_clip = next(r for r in k1 if tuple(r["shape"]) == K1_CLIP_CHUNK)
+    k1_moment = next(r for r in k1 if tuple(r["shape"]) == K1_MOMENT_CHUNK)
     k2_main = k2[0]  # an embed batch in fp32, the serving dtype
-    paths = {"serve": serve["launches"], "eval": evald["launches"], "clip": clip["launches"]}
+    paths = {"serve": serve["launches"], "eval": evald["launches"], "clip": clip["launches"],
+             "moment": moment["launches"]}
     launches = {k: sum(p[k] for p in paths.values()) for k in serve["launches"]}
     chunk_keys = ("shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
@@ -1067,7 +1474,8 @@ def main() -> int:
          "bound_ms": k1_main["bound_ms"], "bound_by": k1_main["bound_by"].split(",")[0],
          "library_ms": k1_main["library_ms"], "shape": k1_main["shape"],
          "eval_chunk": {k: k1_eval[k] for k in chunk_keys},
-         "clip_chunk": {k: k1_clip[k] for k in chunk_keys}},
+         "clip_chunk": {k: k1_clip[k] for k in chunk_keys},
+         "moment_chunk": {k: k1_moment[k] for k in chunk_keys}},
         {"name": "stem_s2d_pool", "route": "cuda", "source": "vqwild_tpu_torch/csrc/stem_pool.cu",
          "replaces": "vqwild_tpu/ops/pallas_kernels.py:152",
          "launches": launches["stem_s2d_pool"],

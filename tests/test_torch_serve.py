@@ -37,7 +37,7 @@ from vqwild_tpu_torch.data.schema import load_trimmed_db
 from vqwild_tpu_torch.retrieval import ARVRetrievalTrimmed, FeatureExtractor, make_fake_feat_fn
 from vqwild_tpu_torch.serve.__main__ import main as serve_main
 from vqwild_tpu_torch.serve.http import make_server
-from vqwild_tpu_torch.serve.index import GalleryIndex, _pow2
+from vqwild_tpu_torch.serve.index import GalleryIndex, MomentIndex, _pow2
 from vqwild_tpu_torch.serve.service import QueryService
 
 REPO = Path(__file__).resolve().parent.parent
@@ -259,14 +259,36 @@ class TestServerEntryPoint:
         assert not thread.is_alive()
 
     @pytest.mark.parametrize("extra,exc", [
-        (["--regime", "moment"], NotImplementedError),
-        (["--regime", "moment", "--no_embed"], NotImplementedError),
         (["--trunk_int8"], NotImplementedError),
     ])
     def test_unported_options_raise(self, tmp_path, extra, exc):
         _index(n=4)[0].save(str(tmp_path / "idx"))
         with pytest.raises(exc, match="not yet ported"):
             serve_main(["--index_dir", str(tmp_path / "idx"), "--device", "cpu"] + extra)
+
+    @pytest.mark.parametrize("extra", [["--regime", "moment"],
+                                       ["--regime", "moment", "--no_embed"]])
+    def test_moment_regime_serves_a_saved_index(self, tmp_path, extra):
+        """``--regime moment`` over a saved trimmed index: as in the JAX
+        server, the index on disk decides, so it is served as a gallery
+        index and /query/moments answers the opaque 500 of a service
+        without a moment index."""
+        index, feats = _index(n=4)
+        index.save(str(tmp_path / "idx"))
+        srv, thread = _serve_in_thread(["--index_dir", str(tmp_path / "idx"), "--device", "cpu",
+                                        "--port", "0", "--max_wait_ms", "1"] + extra)
+        try:
+            base = f"http://127.0.0.1:{srv.server_address[1]}"
+            res = _post(f"{base}/query/features",
+                        json.dumps({"feature": feats[2].tolist(), "k": 1}).encode())["results"]
+            assert res[0]["video_id"] == "v002"
+            with pytest.raises(urllib.error.HTTPError) as ei:
+                _post(f"{base}/query/moments", json.dumps({"feature": feats[2].tolist()}).encode())
+            assert ei.value.code == 500
+        finally:
+            srv.shutdown()
+            thread.join(timeout=30)
+        assert not thread.is_alive()
 
     def test_missing_index_raises(self, tmp_path):
         """No index on disk and nothing to build one with."""
@@ -344,11 +366,27 @@ class TestServerEntryPoint:
         assert set(idx.meta[0]) == {"video_id", "label", "retrieval_type"}
         np.testing.assert_array_equal(idx.scorer.g_dev.numpy(), np.asarray(jidx.scorer.g_dev))
 
-    def test_moment_index_raises(self, tmp_path):
-        _index(n=4)[0].save(str(tmp_path / "idx"))
-        (tmp_path / "idx" / "windows.npz").write_bytes(b"")
-        with pytest.raises(NotImplementedError):
-            serve_main(["--index_dir", str(tmp_path / "idx"), "--device", "cpu"])
+    def test_moment_index_loads(self, tmp_path):
+        """A directory holding windows.npz is a moment index (the JAX
+        server's marker): the server loads it whatever --regime says and
+        answers /query/moments with the window itself first."""
+        rng = np.random.default_rng(11)
+        feats = rng.normal(size=(30, 16)).astype(np.float32)
+        starts = 5.0 * np.arange(30) % 50
+        MomentIndex(feats, ["a", "b", "c"], np.repeat(np.arange(3), 10), starts, starts + 5.0,
+                    device="cpu").save(str(tmp_path / "idx"))
+        srv, thread = _serve_in_thread(["--index_dir", str(tmp_path / "idx"), "--device", "cpu",
+                                        "--port", "0", "--no_embed"])
+        try:
+            res = _post(f"http://127.0.0.1:{srv.server_address[1]}/query/moments",
+                        json.dumps({"feature": feats[14].tolist(), "k": 2}).encode())["results"]
+        finally:
+            srv.shutdown()
+            thread.join(timeout=30)
+        assert not thread.is_alive()
+        assert res[0] == {"video_id": "b", "start_sec": 20.0, "end_sec": 25.0,
+                          "score": res[0]["score"], "rank": 0}
+        assert res[0]["score"] >= -1e-5 and len(res) == 2
 
 
 class TestPortRules:
@@ -357,10 +395,13 @@ class TestPortRules:
         library: never jax, flax or the JAX package."""
         files = sorted((REPO / "vqwild_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
         # every module of the port: the serving slice's 21, the data,
-        # ranking and trimmed-evaluator modules, and the clip regime's
-        assert len(files) >= 43
+        # ranking and trimmed-evaluator modules, the clip regime's and the
+        # moment regime's (with the native engine's bindings)
+        assert len(files) >= 48
         assert {"data/frames.py", "ops/ranking.py", "retrieval/trimmed.py", "apps/cli.py",
-                "data/longvideo.py", "ops/segment_pool.py", "retrieval/clip.py"} <= {
+                "data/longvideo.py", "ops/segment_pool.py", "retrieval/clip.py",
+                "core/hostsig.py", "native/__init__.py", "native/lib.py", "ops/nms.py",
+                "retrieval/moment.py"} <= {
             str(f.relative_to(REPO / "vqwild_tpu_torch")) for f in files[:-1]}
         bad = []
         for f in files:

@@ -13,13 +13,19 @@ over HTTP.
   python -m vqwild_tpu_torch.serve --regime clip --index_dir clip_index \
       --test_load best.pth.tar --meta_split 100_20_80 --clip_sec 6 --port 8080
 
-  # serve a prebuilt index (feature queries only, no model)
+  # the moment regime: one row per moment window (1..--max_clips_per_moment
+  # x --moment_clip_sec seconds) of the gallery videos; adds /query/moments
+  python -m vqwild_tpu_torch.serve --regime moment --index_dir moment_index \
+      --test_load best.pth.tar --meta_split 100_20_80 --port 8080
+
+  # serve a prebuilt index (feature queries only, no model); a directory
+  # holding windows.npz is a moment index, whatever --regime says
   python -m vqwild_tpu_torch.serve --index_dir gallery_index --no_embed --port 8080
 
 The flags are those of ``python -m vqwild_tpu.serve`` plus ``--device``
 (default ``cuda``; ``cpu`` must be asked for) and ``--dtype``. The index
-directory is the JAX server's format. ``--regime moment`` and
-``--trunk_int8`` are not ported yet and raise.
+directory is the JAX server's format. ``--trunk_int8`` is not ported yet
+and raises.
 """
 
 from __future__ import annotations
@@ -69,19 +75,15 @@ def main(argv=None, on_ready: Optional[Callable] = None) -> None:
                    help="trunk compute dtype (float32 runs with TF32 off)")
     args = p.parse_args(argv)
 
-    if args.regime == "moment":
-        raise NotImplementedError("--regime moment is not yet ported")
     if args.trunk_int8:
         raise NotImplementedError("--trunk_int8 is not yet ported")
-    if os.path.exists(os.path.join(args.index_dir, "windows.npz")):
-        raise NotImplementedError("serving a moment index is not yet ported")
 
     import torch
 
     from vqwild_tpu_torch.core.device import disable_tf32, resolve_device
     from vqwild_tpu_torch.core.logging import get_logger
     from vqwild_tpu_torch.serve.http import make_server
-    from vqwild_tpu_torch.serve.index import GalleryIndex
+    from vqwild_tpu_torch.serve.index import GalleryIndex, MomentIndex
     from vqwild_tpu_torch.serve.service import QueryService
 
     log = get_logger("serve")
@@ -94,15 +96,19 @@ def main(argv=None, on_ready: Optional[Callable] = None) -> None:
     if not args.no_embed:
         embed_fn = _build_embed_fn(args, device, dtype, log)
 
+    moment = args.regime == "moment"
     if os.path.exists(os.path.join(args.index_dir, "feats.npy")):
-        index = GalleryIndex.load(args.index_dir, device=device)
-        log.info("loaded gallery index: %d rows", index.n)
+        # a saved moment index is recognizable by its windows.npz
+        moment = os.path.exists(os.path.join(args.index_dir, "windows.npz"))
+        index = (MomentIndex if moment else GalleryIndex).load(args.index_dir, device=device)
+        log.info("loaded %s index: %d rows", "moment" if moment else "gallery", index.n)
     else:
         index = _build_index(args, embed_fn, device)
         index.save(args.index_dir)
     service = QueryService(
         index, embed_fn=embed_fn, default_k=args.k,
         max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+        moment_index=index if moment else None,
     )
     server = make_server(service, host=args.host, port=args.port)
     log.info("serving %d gallery rows on http://%s:%d", index.n,
@@ -141,13 +147,15 @@ def _cfg(args):
 def _build_index(args, embed_fn, device):
     """The gallery index of ``--regime``, embedded through the serving
     trunk. trimmed: every record of ``--eval_split``; clip: every
-    ``--clip_sec`` window of the moment DB's gallery videos (``--max_gallery``
-    caps the records or the videos)."""
+    ``--clip_sec`` window of the moment DB's gallery videos; moment: every
+    moment window of those videos (``--max_gallery`` caps the records or the
+    videos)."""
     from vqwild_tpu_torch.apps.cli import build_data_stack, resolve_data_file
     from vqwild_tpu_torch.data.schema import load_moment_db
     from vqwild_tpu_torch.retrieval.clip import ARVRetrievalClip
     from vqwild_tpu_torch.retrieval.features import FeatureExtractor
-    from vqwild_tpu_torch.serve.index import GalleryIndex
+    from vqwild_tpu_torch.retrieval.moment import ARVRetrievalMoment
+    from vqwild_tpu_torch.serve.index import GalleryIndex, MomentIndex
 
     if embed_fn is None:
         raise SystemExit("--no_embed requires an existing --index_dir")
@@ -165,6 +173,18 @@ def _build_index(args, embed_fn, device):
         return GalleryIndex.build(db.flat(args.eval_split)[:cap], extractor, device=device)
 
     mdb = load_moment_db(resolve_data_file(spec.moment_db_json, args.data_root))
+    if args.regime == "moment":
+        ev = ARVRetrievalMoment(
+            mdb, spec, extractor,
+            moment_clip_sec=args.moment_clip_sec,
+            max_clips_per_moment=args.max_clips_per_moment,
+            device=device,
+        )
+        ev.gallery_videos = ev.gallery_videos[:cap]
+        feats, vidx, s_sec, e_sec, _, _ = ev.build_gallery()
+        video_ids = [v.video_id for v in ev.gallery_videos]
+        return MomentIndex(feats, video_ids, vidx, s_sec, e_sec, device=device)
+
     ev = ARVRetrievalClip(mdb, spec, extractor, clip_sec=args.clip_sec, device=device)
     ev.gallery_videos = ev.gallery_videos[:cap]
     feats, labels, vidx, locs = ev.build_gallery()

@@ -18,7 +18,7 @@ from typing import Callable, List, Optional
 import numpy as np
 
 from vqwild_tpu_torch.core.logging import get_logger
-from vqwild_tpu_torch.serve.index import GalleryIndex
+from vqwild_tpu_torch.serve.index import GalleryIndex, MomentIndex
 
 log = get_logger("serve.service")
 
@@ -37,7 +37,8 @@ class QueryService:
 
     ``embed_fn`` (optional) maps cropped YUV420 planes to frame embeddings
     [B, C, T] — the serving trunk from retrieval.features.make_feat_fn;
-    without it only feature queries are served.
+    without it only feature queries are served. ``moment_index`` (a
+    serve.index.MomentIndex, optional) answers ``query_moments``.
     """
 
     def __init__(
@@ -47,9 +48,11 @@ class QueryService:
         default_k: int = 30,
         max_batch: int = 16,
         max_wait_ms: float = 5.0,
+        moment_index: Optional[MomentIndex] = None,
     ):
         self.index = index
         self.embed_fn = embed_fn
+        self.moment_index = moment_index
         self.default_k = default_k
         self.max_batch = max_batch
         self.max_wait_s = max_wait_ms / 1000.0
@@ -101,9 +104,15 @@ class QueryService:
 
     def query_moments(self, qfeat: np.ndarray, k: int = 10,
                       nms_threshold: float = 0.5) -> List[dict]:
-        """Untrimmed-moment queries need a moment index, which is not ported
-        yet: fails as the JAX service does when built without one."""
-        raise RuntimeError("service built without a moment_index")
+        """[C] clip embedding → top-k NMS-surviving untrimmed moments.
+
+        Served directly from the calling thread, not micro-batched: the
+        moment postprocess is per-query host work, and concurrent calls
+        each launch K1 (its launch path and launch count are thread-safe)."""
+        if self.moment_index is None:
+            raise RuntimeError("service built without a moment_index")
+        qfeat = np.asarray(qfeat, np.float32).reshape(1, -1)
+        return self.moment_index.query(qfeat, k=k, nms_threshold=nms_threshold)[0]
 
     def close(self) -> None:
         """Stop the worker; fail (never strand) any still-queued waiters."""
