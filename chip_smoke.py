@@ -9,8 +9,10 @@ Phases, each printing one JSON line:
   (b) build   — nvcc builds csrc/sq_l2.cu (K1) and csrc/stem_pool.cu (K2),
                 both started together; build seconds and ptxas usage.
   (c) k1      — K1 against its plain PyTorch version at the serving shapes
-                (a full bucket of 16 queries and a single one), at an
-                evaluator chunk (256 queries) and at two ragged ones:
+                (a full bucket of 16 queries and a single one), at a rank
+                chunk of the trimmed (256 queries), clip (256) and moment
+                (128) evaluators and of the moment device engine (32 against
+                1,466,542 rows), and at two ragged ones:
                 rtol 1e-5 / atol 1e-3 on N(0,1) data, and
                 top-30 rows identical on a gallery with planted,
                 well-separated neighbours (tie-free by construction). Each
@@ -75,7 +77,7 @@ Phases, each printing one JSON line:
                 then ARVRetrievalClip with the real extractor over the same
                 videos: gallery features equal to the index's within 1e-5,
                 clips/s of extract_video_tapes.
-  (h) moment  — the untrimmed moment regime on the host engine, with the
+  (h) moment  — the untrimmed moment regime on both engines, with the
                 launch counters zeroed just before and read just after. The
                 clip phase's moment DB (4,900 videos). "moment_fake":
                 ARVRetrievalMoment on seeded fake 512-d features over every
@@ -86,6 +88,18 @@ Phases, each printing one JSON line:
                 the seven timings, GB of gallery and of score readback;
                 then the first tenth of the videos on the card and with
                 device="cpu" (256 queries), every metric within 1e-3.
+                "moment_device": the device engine (engine="device": NMS
+                and grouped-order AP as torch ops, K1 once per chunk of 32,
+                16 chunks in one super-chunk) on the same 512 queries over
+                the gallery moment_fake built and kept: every metric within
+                1e-3 of the host engine's, its timings and ranking seconds
+                beside the host engine's readback + postprocess, peak device
+                memory, the bucket plan; at the tenth of the videos within
+                1e-3 of the CPU host engine's metrics; then one chunk under
+                torch.profiler (line "profile_moment_device": device ms by
+                kernel, K1's, the spans of the scoring, bucket-sort, NMS
+                and AP-sort ranges, launches, synchronising calls, busy
+                share).
                 "moment_serve": a MomentIndex of those 1.47M windows behind
                 the port's HTTP server; /query/moments (k = 10) for 32
                 short windows' own features, sequential and 8-way
@@ -103,7 +117,8 @@ Phases, each printing one JSON line:
                 at rank 0; a second server loads the saved index
                 (--no_embed) and answers identically; then
                 ARVRetrievalMoment with the real extractor over the same
-                videos: gallery features equal to the index's within 1e-5.
+                videos (engine "auto": the device engine on the card):
+                gallery features equal to the index's within 1e-5.
   (i) kernels — one {"kernels": [...]} line; ``launches`` counts the serve,
                 eval, clip and moment phases together.
 
@@ -141,10 +156,12 @@ K1_CLIP_CHUNK = (256, 100000, 512)  # one rank chunk of the clip evaluator
 # one rank chunk of the moment evaluator over the moment phase's gallery:
 # every window of 1-26 x 5 s of the 4,900 videos (phase_moment checks the count)
 K1_MOMENT_CHUNK = (128, 1466542, 512)
+# one chunk of the moment evaluator's device engine (32 queries) over it
+K1_MOMENT_DEVICE_CHUNK = (32, 1466542, 512)
 K1_SHAPES = [(16, 7670, 512), (16, 100000, 512), (1, 7670, 512), (5, 130, 512), (300, 1000, 64),
-             K1_EVAL_CHUNK, K1_CLIP_CHUNK, K1_MOMENT_CHUNK]
+             K1_EVAL_CHUNK, K1_CLIP_CHUNK, K1_MOMENT_CHUNK, K1_MOMENT_DEVICE_CHUNK]
 # galleries that cannot sit in L2: their times are held to their bounds
-K1_BEYOND_L2 = ((16, 100000, 512), K1_CLIP_CHUNK, K1_MOMENT_CHUNK)
+K1_BEYOND_L2 = ((16, 100000, 512), K1_CLIP_CHUNK, K1_MOMENT_CHUNK, K1_MOMENT_DEVICE_CHUNK)
 # an embed batch (30 clips x 32 frames) in both types, a clip query in fp32
 K2_CASES = [((960, 56, 56, 6), ("float32", "bfloat16")), ((32, 56, 56, 6), ("float32",))]
 K2_ATOL = {"float32": 1e-4, "bfloat16": 0.05}
@@ -162,6 +179,9 @@ CLIP_REAL_VIDEOS = 64
 # the moment phase: the clip phase's DB, windows of 1..26 x 5 s; the 1,800
 # queries cut to 512 (4 chunks of 128) to bound the host postprocess
 MOMENT_CLIP_SEC, MOMENT_MAX_CLIPS, MOMENT_QUERY_CAP, MOMENT_REAL_VIDEOS = 5, 26, 512, 64
+# the device engine's chunk (ARVRetrievalMoment: min(rank_chunk, 32)) and its
+# super-chunk (the evaluator's default scan_chunks)
+MOMENT_DEVICE_CHUNK, MOMENT_SCAN_CHUNKS = 32, 16
 
 
 def emit(obj) -> None:
@@ -376,14 +396,29 @@ def concurrently(fns):
     return out
 
 
+ANNOTATION = "moment_device."  # the device engine's record_function ranges
+
+
 def device_ms_by_kernel(prof) -> dict:
     """Device time (ms) by kernel name from a torch.profiler run; empty if
     the profiler traced no device activity."""
     kernels = {}
     for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):
+        if str(e.device_type).endswith("CUDA") and not e.key.startswith(ANNOTATION):
             kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total / 1e3
     return kernels
+
+
+def annotation_ms(prof) -> dict:
+    """The device engine's ranges from a torch.profiler run: for each, its
+    span on the device's timeline in ms (the GPU annotation: from its first
+    kernel's start to its last kernel's end, idle gaps included, summed over
+    its calls) and its calls."""
+    out = {}
+    for e in prof.key_averages():
+        if e.key.startswith(ANNOTATION) and str(e.device_type).endswith("CUDA"):
+            out[e.key[len(ANNOTATION):]] = {"span": e.device_time_total / 1e3, "calls": e.count}
+    return out
 
 
 def profile_embed(feat_fn, y, uv):
@@ -1111,6 +1146,126 @@ def short_windows(vidx, s_sec, e_sec, n, longest=10.0):
     return [int(r) for r in rows[np.linspace(0, len(rows) - 1, n).astype(int)]]
 
 
+def profile_moment_device(run, n_queries):
+    """The device engine's rank loop over ``n_queries`` queries (one chunk)
+    under torch.profiler: device ms by kernel, K1's, the spans of the
+    engine's ranges (scoring, bucket sort, NMS with its pair matrices,
+    within-block loop and cross-block pass, AP sort), kernel launches and
+    runtime calls that synchronise, and the device's busy share of the
+    loop's host time. ``run(profiled)`` returns
+    the evaluator's timings; ``profiled`` wraps the rank loop."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    holder = {}
+
+    def profiled(rank_loop):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                # the tracer loses the first kernels after it starts (a
+                # profiled rank loop alone lacked K1 and the first bucket's
+                # sort): a few tiny kernels go first
+                warm = torch.zeros(1, device="cuda")
+                for _ in range(16):
+                    warm.add_(1.0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = rank_loop(*args, **kwargs)
+                torch.cuda.synchronize()
+                holder["wall_ms"] = (time.perf_counter() - t0) * 1e3
+            holder["prof"] = prof
+            return out
+        return wrapped
+
+    timings = run(profiled)
+    prof, wall_ms = holder["prof"], holder["wall_ms"]
+    kernels = device_ms_by_kernel(prof)
+    calls = {e.key: e.count for e in prof.key_averages()
+             if "Launch" in e.key or "Synchronize" in e.key or e.key.startswith("cudaMemcpy")}
+    device_ms = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    return {"phase": "profile_moment_device", "queries": n_queries, "chunks": 1,
+            "device_ms": device_ms if kernels else "not traced", "wall_ms": wall_ms,
+            "device_busy_share": device_ms / wall_ms if kernels else "not traced",
+            "sq_l2_ms": sum(v for k, v in kernels.items() if "sq_l2_kernel" in k),
+            "sort_kernels_ms": sum(v for k, v in kernels.items() if "sort" in k.lower()),
+            "ranges_ms": annotation_ms(prof),
+            "runtime_calls": calls, "n_kernel_names": len(kernels),
+            "timings_s": timings,
+            "top_kernels_ms": [[k[:90], v] for k, v in top]}
+
+
+def moment_device_phase(dev, fake_eval, kept, host_got, host_timings, want_small, *,
+                        query_cap, small_q, tenth, n_videos, counts):
+    """``moment_device``: the device engine over the full-width gallery that
+    ``moment_fake`` built (``kept``), against the host engine's metrics
+    (``host_got``), its peak memory and ranking time beside the host
+    engine's readback + postprocess; the same at a tenth of the videos
+    against the CPU host engine (``want_small``); one chunk profiled."""
+    import torch
+
+    from vqwild_tpu_torch.retrieval.moment_device import _bucket_plan
+
+    cuda = dev.type == "cuda"
+    vidx = kept[1]
+    plan = [[b["w"], len(b["vglob"])] for b in _bucket_plan(vidx, n_videos)]
+    n_chunks = -(-query_cap // MOMENT_DEVICE_CHUNK)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    before = counts()
+    got, timings, wall_s = fake_eval(dev, query_cap, engine="device", reuse=kept)
+    if cuda:
+        torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in counts().items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    diff = tree_max_diff(got, host_got)
+    ranking_s = sum(timings[k] for k in ("engine_build", "gallery_to_device", "metrics_device",
+                                         "metrics_readback"))
+    host_ranking_s = host_timings["score_readback"] + host_timings["postprocess"]
+    small, small_timings = fake_eval(dev, small_q, gallery=tenth, engine="device")[:2]
+    diff_small = tree_max_diff(small, want_small)
+    emit({"phase": "moment_device", "moment_windows": int(len(vidx)), "queries": query_cap,
+          "chunks": n_chunks, "chunk": MOMENT_DEVICE_CHUNK, "scan_chunks": MOMENT_SCAN_CHUNKS,
+          "buckets_width_videos": plan,
+          "padded_slots_per_query": sum(w * v for w, v in plan),
+          "nms_steps_per_chunk": sum(w for w, _ in plan),
+          "resolved_engine": "device", "timings_s": timings, "wall_s": wall_s,
+          "ranking_s": ranking_s, "ms_per_chunk": 1e3 * (timings["metrics_device"]
+                                                         + timings["metrics_readback"]) / n_chunks,
+          "host_engine_score_readback_plus_postprocess_s": host_ranking_s,
+          "peak_device_memory_gb": peak_gb,
+          "metrics_max_abs_diff_vs_host_engine": diff, "tol": EVAL_METRIC_TOL,
+          "largest_diff_at": worst_entry(got, host_got)[0],
+          "tenth_videos": tenth, "tenth_queries": small_q,
+          "tenth_max_abs_diff_vs_cpu_host_engine": diff_small,
+          "tenth_largest_diff_at": worst_entry(small, want_small)[0],
+          "tenth_timings_s": small_timings,
+          "ap": got["map05"]["ap"], "host_engine_ap": host_got["map05"]["ap"],
+          "launches": launches})
+    numbers = tree_numbers(got)
+    if not numbers or not all(np.isfinite(x) and 0.0 <= x <= 1.0 for x in numbers):
+        raise AssertionError(f"moment_device metrics outside [0, 1]: {got}")
+    if set(timings) != {"query_feats", "engine_build", "gallery_to_device", "metrics_device",
+                        "metrics_readback"}:
+        raise AssertionError(f"moment_device timings: {sorted(timings)}")
+    if not diff <= EVAL_METRIC_TOL:
+        raise AssertionError(f"moment_device: device and host engines differ by {diff}")
+    if not diff_small <= EVAL_METRIC_TOL:
+        raise AssertionError(f"moment_device: the card at a tenth differs from the CPU host "
+                             f"engine by {diff_small}")
+    if cuda and launches != {"sq_l2": n_chunks, "stem_s2d_pool": 0}:
+        raise AssertionError(f"moment_device: launches {launches}, expected K1 once per chunk "
+                             f"({n_chunks} chunks of {MOMENT_DEVICE_CHUNK})")
+    if cuda:
+        emit(profile_moment_device(
+            lambda profiled: fake_eval(dev, MOMENT_DEVICE_CHUNK, engine="device", reuse=kept,
+                                       profiled=profiled)[1],
+            MOMENT_DEVICE_CHUNK))
+
+
 def phase_moment(dev, workdir, ckpt, *, videos, queries, labels, query_cap, real_videos, clips,
                  frames, crop, moment_clip_sec, max_clips, feat_dim=512, rank_chunk=128,
                  serve_queries=32, serve_conc=8, serve_k=10, pool=4096):
@@ -1150,13 +1305,15 @@ def phase_moment(dev, workdir, ckpt, *, videos, queries, labels, query_cap, real
     n_all_queries = len(mdb.nonnoise_queries())
 
     # (a) seeded fake features over the whole gallery, the queries cut to
-    # ``query_cap``; the built gallery is kept for the serving part
-    def fake_eval(device, n_queries, gallery=None, keep=None):
+    # ``query_cap``; the built gallery is kept for the device engine and the
+    # serving part, which reuse it (``reuse``) instead of building it again
+    def fake_eval(device, n_queries, gallery=None, keep=None, engine="host", reuse=None,
+                  profiled=None):
         ex = FeatureExtractor(make_fake_feat_fn(feat_dim, seed=10), length_store(video_frames),
                               test_frames=frames, test_batch_size=clips, fake=True)
         ev = ARVRetrievalMoment(mdb, spec, ex, moment_clip_sec=moment_clip_sec,
                                 max_clips_per_moment=max_clips, rank_chunk=rank_chunk,
-                                device=device, engine="host")
+                                device=device, engine=engine)
         ev.queries = ev.queries[:n_queries]
         if gallery is not None:
             ev.gallery_videos = ev.gallery_videos[:gallery]
@@ -1168,11 +1325,16 @@ def phase_moment(dev, workdir, ckpt, *, videos, queries, labels, query_cap, real
                 return keep["gallery"]
 
             ev.build_gallery = build_and_keep
+        if reuse is not None:
+            ev.build_gallery = lambda: reuse
+        if profiled is not None:  # the device engine's rank loop alone
+            ev._device_scan_rank = profiled(ev._device_scan_rank)
         t0 = time.perf_counter()
         result = ev.evaluation()
-        if ev.resolved_engine != "native":
+        want = "native" if engine == "host" else engine
+        if ev.resolved_engine != want:
             raise AssertionError(f"moment postprocess ran on {ev.resolved_engine!r}, not the "
-                                 "native engine: the host build failed")
+                                 f"{want} engine")
         return result, ev.timings, time.perf_counter() - t0
 
     keep = {}
@@ -1216,7 +1378,13 @@ def phase_moment(dev, workdir, ckpt, *, videos, queries, labels, query_cap, real
     if not diff <= EVAL_METRIC_TOL:
         raise AssertionError(f"moment: card and CPU metrics differ by {diff} > {EVAL_METRIC_TOL}")
 
-    # (b) /query/moments over the fake gallery's MomentIndex, sequential and
+    # (b) the device engine (NMS and grouped-order AP as torch ops, K1 once
+    # per chunk of 32) on the same queries over the kept gallery
+    moment_device_phase(dev, fake_eval, keep["gallery"], got, timings, want_small,
+                        query_cap=query_cap, small_q=small_q, tenth=tenth,
+                        n_videos=len(mdb.gallery), counts=counts)
+
+    # (c) /query/moments over the fake gallery's MomentIndex, sequential and
     # ``serve_conc``-way concurrent; then the pool's top-k two ways
     t0 = time.perf_counter()
     index = MomentIndex(feats, [v.video_id for v in mdb.gallery], vidx, s_sec, e_sec, device=dev)
@@ -1302,7 +1470,7 @@ def phase_moment(dev, workdir, ckpt, *, videos, queries, labels, query_cap, real
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    # (c) the server builds, saves and serves the moment index of the first
+    # (d) the server builds, saves and serves the moment index of the first
     # ``real_videos`` videos from the synthetic store through the trunk; a
     # second server loads it; then the evaluator with the real extractor
     store = SyntheticFrameStore()
@@ -1382,7 +1550,12 @@ def phase_moment(dev, workdir, ckpt, *, videos, queries, labels, query_cap, real
                  if ev_feats.shape == real_feats.shape else None)
     numbers = tree_numbers(result)
     kept = min(n_batches * clips, n_all_queries)
-    eval_chunks = -(-kept // rank_chunk)
+    # on the card ``auto`` takes the device engine: its chunks of 32 are
+    # padded to whole super-chunks, each scored by K1
+    device_chunks = -(-kept // MOMENT_DEVICE_CHUNK)
+    scan = min(MOMENT_SCAN_CHUNKS, device_chunks)
+    eval_chunks = -(-device_chunks // scan) * scan
+    want_engine = "device" if dev.type == "cuda" else "native"
     launches = counts()
     # ---- end of the moment path ----
     emit({"phase": "moment_real", "gallery_videos": real_videos, "chunks": real_chunks,
@@ -1399,6 +1572,8 @@ def phase_moment(dev, workdir, ckpt, *, videos, queries, labels, query_cap, real
         raise AssertionError(f"evaluator moment features differ from the index's: {feats_err}")
     if not numbers or not all(np.isfinite(x) and 0.0 <= x <= 1.0 for x in numbers):
         raise AssertionError(f"moment_real metrics outside [0, 1]: {result}")
+    if ev.resolved_engine != want_engine:
+        raise AssertionError(f"moment_real: engine {ev.resolved_engine!r}, not {want_engine!r}")
     if dev.type == "cuda" and (build_launches["stem_s2d_pool"] != n_batches
                                or build_launches["sq_l2"] < 1
                                or real_launches["stem_s2d_pool"] != 2 * n_batches
@@ -1451,14 +1626,15 @@ def main() -> int:
                               query_cap=MOMENT_QUERY_CAP, real_videos=MOMENT_REAL_VIDEOS,
                               clips=CLIPS, frames=FRAMES, crop=CROP,
                               moment_clip_sec=MOMENT_CLIP_SEC, max_clips=MOMENT_MAX_CLIPS)
-    if moment["windows"] != K1_MOMENT_CHUNK[1]:
+    if moment["windows"] != K1_MOMENT_CHUNK[1] or K1_MOMENT_DEVICE_CHUNK[1] != K1_MOMENT_CHUNK[1]:
         raise AssertionError(f"the moment gallery has {moment['windows']} windows; K1 was timed "
-                             f"at {K1_MOMENT_CHUNK}")
+                             f"at {K1_MOMENT_CHUNK} and {K1_MOMENT_DEVICE_CHUNK}")
 
     k1_main = k1[0]  # (16, 7670, 512): the smoke's gallery at a full query bucket
     k1_eval = next(r for r in k1 if tuple(r["shape"]) == K1_EVAL_CHUNK)
     k1_clip = next(r for r in k1 if tuple(r["shape"]) == K1_CLIP_CHUNK)
     k1_moment = next(r for r in k1 if tuple(r["shape"]) == K1_MOMENT_CHUNK)
+    k1_moment_device = next(r for r in k1 if tuple(r["shape"]) == K1_MOMENT_DEVICE_CHUNK)
     k2_main = k2[0]  # an embed batch in fp32, the serving dtype
     paths = {"serve": serve["launches"], "eval": evald["launches"], "clip": clip["launches"],
              "moment": moment["launches"]}
@@ -1475,7 +1651,8 @@ def main() -> int:
          "library_ms": k1_main["library_ms"], "shape": k1_main["shape"],
          "eval_chunk": {k: k1_eval[k] for k in chunk_keys},
          "clip_chunk": {k: k1_clip[k] for k in chunk_keys},
-         "moment_chunk": {k: k1_moment[k] for k in chunk_keys}},
+         "moment_chunk": {k: k1_moment[k] for k in chunk_keys},
+         "moment_device_chunk": {k: k1_moment_device[k] for k in chunk_keys}},
         {"name": "stem_s2d_pool", "route": "cuda", "source": "vqwild_tpu_torch/csrc/stem_pool.cu",
          "replaces": "vqwild_tpu/ops/pallas_kernels.py:152",
          "launches": launches["stem_s2d_pool"],

@@ -344,8 +344,10 @@ class TestMomentEval:
     def test_engines(self, tiny_arv, jx):
         ex, _ = _fake(jx)
         db, spec = load_moment_db(tiny_arv["moment_path"]), _spec(tiny_arv)
-        with pytest.raises(NotImplementedError, match="3c"):
-            ARVRetrievalMoment(db, spec, ex, device="cpu", engine="device")
+        dev_ev = ARVRetrievalMoment(db, spec, ex, device="cpu", engine="device",
+                                    moment_clip_sec=5, rank_chunk=64)
+        dev_ev.evaluation()
+        assert dev_ev.resolved_engine == "device"
         with pytest.raises(ValueError):
             ARVRetrievalMoment(db, spec, ex, device="cpu", engine="gpu")
         with pytest.raises(ValueError):
@@ -609,9 +611,9 @@ def cuda():
 @pytest.mark.cuda
 class TestOnTheCard:
     def test_moment_metrics_match_cpu(self, cuda, tmp_path):
-        """The moment evaluator on the card (K1 scores each chunk of 128,
-        the native engine postprocesses) against the same evaluation on the
-        CPU, on seeded fake features over a seeded moment DB of 60 videos
+        """The moment evaluator's host engine on the card (K1 scores each
+        chunk of 128, the native engine postprocesses) against the same
+        evaluation on the CPU, on seeded fake features over a seeded moment DB of 60 videos
         (~18,000 windows): every metric within 1e-3, the rule
         ``chip_smoke.py`` holds the card to."""
         from chip_smoke import length_store, tree_max_diff, write_moment_db
@@ -625,7 +627,7 @@ class TestOnTheCard:
         def run(device):
             ex = FeatureExtractor(make_fake_feat_fn(512, seed=4), length_store(frames),
                                   test_frames=32, test_batch_size=30, fake=True)
-            ev = ARVRetrievalMoment(mdb, spec, ex, device=device)
+            ev = ARVRetrievalMoment(mdb, spec, ex, device=device, engine="host")
             out = ev.evaluation()
             assert ev.resolved_engine == "native"
             return out

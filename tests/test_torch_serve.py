@@ -396,12 +396,13 @@ class TestPortRules:
         files = sorted((REPO / "vqwild_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
         # every module of the port: the serving slice's 21, the data,
         # ranking and trimmed-evaluator modules, the clip regime's and the
-        # moment regime's (with the native engine's bindings)
-        assert len(files) >= 48
+        # moment regime's (with the native engine's bindings and the device
+        # engine)
+        assert len(files) >= 49
         assert {"data/frames.py", "ops/ranking.py", "retrieval/trimmed.py", "apps/cli.py",
                 "data/longvideo.py", "ops/segment_pool.py", "retrieval/clip.py",
                 "core/hostsig.py", "native/__init__.py", "native/lib.py", "ops/nms.py",
-                "retrieval/moment.py"} <= {
+                "retrieval/moment.py", "retrieval/moment_device.py"} <= {
             str(f.relative_to(REPO / "vqwild_tpu_torch")) for f in files[:-1]}
         bad = []
         for f in files:

@@ -16,22 +16,23 @@ Faithfully-preserved upstream quirks:
 * NMS runs before the ignore filter, so ignored moments can suppress valid
   ones (:1283-1314 vs :386-402).
 
-Counterpart of vqwild_tpu/retrieval/moment.py's host engine. Like the
-port's clip evaluator it takes ``device`` where the JAX class takes
-``mesh``. Each rank chunk is scored on the device (K1 on a CUDA tensor),
-read back into one reused host buffer, and postprocessed on the host by
-one of two engines:
+Counterpart of vqwild_tpu/retrieval/moment.py. Like the port's clip
+evaluator it takes ``device`` where the JAX class takes ``mesh``. The
+per-query postprocess runs on one of three engines:
 
-* **native**: the port's C++ thread-pool engine (vqwild_tpu_torch/native);
-* **numpy threads**: the pure-python path, taken when the host has no g++
-  or ``VQWILD_NO_NATIVE=1``, and the diagnostics path (it is the only
+* **device** (``engine="auto"`` on ``cuda``): NMS + grouped-order metrics as
+  torch ops on the device (retrieval/moment_device.py); each chunk is scored
+  by K1 and the [Q, ~10^6] scores never cross to the host: the readback is
+  one AP + R@N row per query. ``engine="device"`` takes it on any device,
+  the CPU included;
+* **native**: each rank chunk is scored on the device, read back into one
+  reused host buffer and postprocessed by the port's C++ thread-pool engine
+  (vqwild_tpu_torch/native), the default on the CPU;
+* **numpy threads**: the pure-python host path, taken when the host has no
+  g++ or ``VQWILD_NO_NATIVE=1``, and the diagnostics path (it is the only
   engine that exposes the per-query kept stream for cm_dict).
 
-The JAX package's device engine (retrieval/moment_device.py, which keeps the
-[Q, ~10^6] scores on the device) is not ported yet: ``engine="device"``
-raises, and ``engine="auto"`` takes the host engine on every device, where
-JAX's picks the device engine on an accelerator. The two JAX engines are
-metric-equal, so the choice moves time, not results.
+The engines are metric-equal, so the choice moves time, not results.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ from vqwild_tpu_torch.ops import metrics_np
 from vqwild_tpu_torch.ops.hostmem import alloc_array
 from vqwild_tpu_torch.ops.nms import temporal_nms
 from vqwild_tpu_torch.ops.segment_pool import HostWindowPooler, enumerate_moment_windows
+from vqwild_tpu_torch.retrieval import moment_device
 from vqwild_tpu_torch.retrieval.aggregate import MetricAggregator
 from vqwild_tpu_torch.retrieval.diagnostics import DiagnosticsCollector
 from vqwild_tpu_torch.retrieval.features import FeatureExtractor
@@ -157,6 +159,34 @@ def moment_query_metrics(
     return ap, recalls
 
 
+def use_device_engine(engine: str, device: torch.device, collect_diagnostics: bool,
+                      vidx: np.ndarray) -> bool:
+    """The JAX class's engine rule, with its accelerator test read as
+    ``device.type == "cuda"``: "device" always, "auto" on cuda without
+    diagnostics; either falls back to the host postprocess when a video has
+    more moments than the device engine's widest bucket."""
+    use_device = engine == "device" or (
+        engine == "auto"
+        and not collect_diagnostics
+        and len(vidx) > 0
+        # the device engine exists to avoid the [Q, ~10^6] score readback;
+        # on the CPU there is no device link to avoid, and its padded-bucket
+        # NMS costs more than the native postprocess
+        and device.type == "cuda"
+    )
+    if use_device and len(vidx):
+        max_per_video = int(np.bincount(vidx).max())
+        if max_per_video > moment_device.MAX_MOMENTS_PER_VIDEO:
+            log.warning(
+                "device moment engine disabled: a video has %d moments "
+                "> the %d bucket cap; falling back to the host postprocess",
+                max_per_video,
+                moment_device.MAX_MOMENTS_PER_VIDEO,
+            )
+            use_device = False
+    return use_device
+
+
 def _host_buffer(rows: int, cols: int, dtype: torch.dtype) -> torch.Tensor:
     """A pre-faulted host tensor (ops.hostmem.alloc_array) of ``dtype``:
     the score readback reuses it for every chunk."""
@@ -214,16 +244,16 @@ class ARVRetrievalMoment:
         self.score_readback_dtype = score_readback_dtype
         if engine not in ("auto", "device", "host"):
             raise ValueError(f"unknown engine {engine!r}")
-        if engine == "device":
-            raise NotImplementedError(
-                "engine='device' (retrieval/moment_device.py) is not ported yet "
-                "(Slice 3c); use 'host' or 'auto'"
-            )
+        # postprocess engine: "device" keeps the [Q, G] scores on the device
+        # and reads back per-query metrics only; "host" reads the scores back
+        # for the native/numpy postprocess; "auto" picks device on cuda and
+        # host on the CPU, or when diagnostics need the per-query kept stream
+        # or a video overflows the engine's bucket cap
         self.engine = engine
-        # the device engine's super-chunking; accepted for the JAX signature,
-        # unused until the device engine is ported
+        # device-engine super-chunking: ``scan_chunks`` query chunks are
+        # queued per readback (0 = dispatch and read back chunk by chunk)
         self.scan_chunks = int(scan_chunks)
-        # resolved by evaluation(): "native" | "numpy"
+        # resolved by evaluation(): "device" | "native" | "numpy"
         self.resolved_engine = ""
         self.possible_classes = set(spec.possible_classes("testing"))
         self.queries: List[VideoRecord] = db.nonnoise_queries()
@@ -306,6 +336,182 @@ class ARVRetrievalMoment:
         )
         return out
 
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _evaluation_device(
+        self, queries, q_feats_all, feats, vidx, s_sec, e_sec, h_label, h_iou
+    ) -> dict:
+        """Device-engine ranking: scores never leave the device; per chunk the
+        readback is one AP + R@N row per query (retrieval/moment_device.py).
+        Metric-equal to the host postprocess."""
+        with phase(self.timings, "engine_build"):
+            engine = moment_device.DeviceMomentEngine(
+                vidx,
+                s_sec,
+                e_sec,
+                h_label,
+                h_iou,
+                len(self.gallery_videos),
+                nms_threshold=self.nms_threshold,
+                tiou_threshold=self.tiou_threshold,
+                chunk=min(self.rank_chunk, 32),
+                max_ignore=max(8, 1 + self.multi_query_extra),
+                device=self.device,
+            )
+        video_id_to_idx = {v.video_id: i for i, v in enumerate(self.gallery_videos)}
+        expanded = generate_multi_query(
+            list(range(len(queries))),
+            label_of=lambda i: queries[i].label,
+            video_id_of=lambda i: queries[i].video_id,
+            extras=self.multi_query_extra,
+        )
+        log.info(
+            "moment ranking (device engine): %d queries x %d moments",
+            len(expanded),
+            len(feats),
+        )
+        agg = MetricAggregator(self.r_at_n)
+        agg.set_class_info(
+            [(queries[qs[0]].label, queries[qs[0]].retrieval_type) for qs in expanded]
+        )
+        with phase(self.timings, "gallery_to_device"):
+            scorer = GalleryScorer(feats, device=self.device)
+            # queries gather from a device-resident bank: per chunk only the
+            # [B, query_num] row indices cross to the device, not [B, D] features
+            scorer.set_query_bank(q_feats_all.astype(np.float32, copy=False))
+            self._sync()
+        if self.scan_chunks > 0 and expanded:
+            return self._device_scan_rank(
+                engine, scorer, queries, expanded, video_id_to_idx, agg
+            )
+        # bounded in-flight pipeline: keep up to `inflight` chunks dispatched
+        # ahead of the readback cursor, so progress is steady and the staged
+        # device outputs stay bounded
+        inflight = 16
+        staged: list = []
+        read_cursor = 0
+
+        def _finalize_one():
+            nonlocal read_cursor
+            batch, handle = staged[read_cursor]
+            staged[read_cursor] = None  # free the device handles
+            read_cursor += 1
+            aps, recalls = engine.finalize(handle)
+            if read_cursor % 8 == 0 or read_cursor == n_chunks:
+                log.info("moment chunk %d/%d read back", read_cursor, n_chunks)
+            for bi, qs in enumerate(batch):
+                q = queries[qs[0]]
+                agg.add(q.label, q.retrieval_type, float(aps[bi]), recalls[bi].tolist())
+
+        n_chunks = -(-len(expanded) // engine.chunk)
+        for cstart in range(0, len(expanded), engine.chunk):
+            batch = expanded[cstart : cstart + engine.chunk]
+            q_rows = np.full((len(batch), self.query_num), -1, np.int32)
+            for bi, qs in enumerate(batch):
+                take = qs[: self.query_num]
+                q_rows[bi, : len(take)] = take
+            q_labels = [engine.label_id(queries[qs[0]].label) for qs in batch]
+            ignore_vids = [
+                [
+                    video_id_to_idx[queries[qi].video_id]
+                    for qi in qs
+                    if queries[qi].video_id in video_id_to_idx
+                ]
+                for qs in batch
+            ]
+            with phase(self.timings, "score_device"):
+                dev_scores = scorer.scores_from_bank(q_rows)
+            with phase(self.timings, "metrics_device"):
+                staged.append(
+                    (
+                        batch,
+                        engine.dispatch(
+                            dev_scores, q_labels, ignore_vids, self.r_at_n, self.robust_map
+                        ),
+                    )
+                )
+            del dev_scores
+            if len(staged) % 8 == 0 or len(staged) == n_chunks:
+                log.info("moment chunk %d/%d dispatched", len(staged), n_chunks)
+            if len(staged) - read_cursor >= inflight:
+                with phase(self.timings, "metrics_readback"):
+                    _finalize_one()
+        with phase(self.timings, "metrics_readback"):
+            while read_cursor < len(staged):
+                _finalize_one()
+        return {"map05": agg.result()}
+
+    def _device_scan_rank(self, engine, scorer, queries, expanded, video_id_to_idx,
+                          agg) -> dict:
+        """Rank loop with super-chunked dispatch: ``scan_chunks`` query
+        chunks are queued per readback (moment_device._scan_metrics), so the
+        host waits once per super-chunk. Tail chunks pad by replicating
+        query 0; their outputs are dropped below."""
+        b = engine.chunk
+        qe = len(expanded)
+        n_chunks = -(-qe // b)
+        s_chunks = min(self.scan_chunks, n_chunks)
+        n_prog = -(-n_chunks // s_chunks)
+        total = n_prog * s_chunks * b
+        q_rows = np.full((total, self.query_num), -1, np.int32)
+        q_lab = np.zeros(total, np.int32)
+        ig = np.full((total, engine.max_ignore), -1, np.int64)
+        for i, qs in enumerate(expanded):
+            take = qs[: self.query_num]
+            q_rows[i, : len(take)] = take
+            q_lab[i] = engine.label_id(queries[qs[0]].label)
+            vids = [
+                video_id_to_idx[queries[qi].video_id]
+                for qi in qs
+                if queries[qi].video_id in video_id_to_idx
+            ]
+            if len(vids) > engine.max_ignore:
+                raise ValueError(f"{len(vids)} ignore videos > {engine.max_ignore}")
+            ig[i, : len(vids)] = vids
+        if total > qe:
+            q_rows[qe:] = q_rows[0]
+            q_lab[qe:] = q_lab[0]
+            ig[qe:] = ig[0]
+        q_rows = q_rows.reshape(n_prog, s_chunks, b, self.query_num)
+        q_lab = q_lab.reshape(n_prog, s_chunks, b)
+        ig = ig.reshape(n_prog, s_chunks, b, engine.max_ignore)
+        # bounded in-flight pipeline over super-chunks (see _evaluation_device)
+        inflight = 2
+        staged: list = []
+        read_cursor = 0
+
+        def _finalize_one():
+            nonlocal read_cursor
+            p = read_cursor
+            handle = staged[p]
+            staged[p] = None  # free the device handles
+            read_cursor += 1
+            aps, recalls = engine.finalize_scan(handle)
+            log.info("moment super-chunk %d/%d read back", read_cursor, n_prog)
+            base = p * s_chunks * b
+            for j in range(min(len(aps), qe - base)):
+                q = queries[expanded[base + j][0]]
+                agg.add(q.label, q.retrieval_type, float(aps[j]), recalls[j].tolist())
+
+        for p in range(n_prog):
+            with phase(self.timings, "metrics_device"):
+                staged.append(
+                    engine.dispatch_scan(
+                        scorer.q_bank, scorer.g_dev, q_rows[p], q_lab[p], ig[p],
+                        self.r_at_n, self.robust_map,
+                    )
+                )
+            log.info("moment super-chunk %d/%d dispatched", p + 1, n_prog)
+            if len(staged) - read_cursor >= inflight:
+                with phase(self.timings, "metrics_readback"):
+                    _finalize_one()
+        with phase(self.timings, "metrics_readback"):
+            while read_cursor < len(staged):
+                _finalize_one()
+        return {"map05": agg.result()}
+
     def evaluation(self) -> dict:
         with phase(self.timings, "query_feats"):
             q_feats_all = self.extractor.extract_trimmed(self.queries)
@@ -315,6 +521,12 @@ class ARVRetrievalMoment:
         q_feats_all = q_feats_all[keep]
 
         feats, vidx, s_sec, e_sec, h_label, h_iou = self.build_gallery()
+
+        if use_device_engine(self.engine, self.device, self.collect_diagnostics, vidx):
+            self.resolved_engine = "device"
+            return self._evaluation_device(
+                queries, q_feats_all, feats, vidx, s_sec, e_sec, h_label, h_iou
+            )
 
         # the native engine returns only ap/recalls; diagnostics need the
         # per-query kept stream, so they ride the numpy/thread path
@@ -355,11 +567,9 @@ class ARVRetrievalMoment:
         # payload over the kept grouped-order stream (retrieval/diagnostics.py)
         diag = DiagnosticsCollector(self.robust_map) if self.collect_diagnostics else None
 
-        cuda = self.device.type == "cuda"
         with phase(self.timings, "gallery_to_device"):
             scorer = GalleryScorer(feats, device=self.device)
-            if cuda:
-                torch.cuda.synchronize(self.device)
+            self._sync()
         bf16 = self.score_readback_dtype == "bfloat16"
         rows = min(self.rank_chunk, max(len(expanded), 1))
         # one host block for every chunk's scores (751 MB at 128 x 1.47M
@@ -381,8 +591,7 @@ class ARVRetrievalMoment:
                     dev_scores = scorer.scores(
                         qf, out_dtype=torch.bfloat16 if bf16 else None
                     )
-                    if cuda:
-                        torch.cuda.synchronize(self.device)
+                    self._sync()
                 with phase(self.timings, "score_readback"):
                     readback[:b].copy_(dev_scores)
                     if bf16:  # postprocess consumes fp32 (host widen is cheap)
