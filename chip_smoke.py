@@ -119,8 +119,26 @@ Phases, each printing one JSON line:
                 ARVRetrievalMoment with the real extractor over the same
                 videos (engine "auto": the device engine on the card):
                 gallery features equal to the index's within 1e-5.
-  (i) kernels — one {"kernels": [...]} line; ``launches`` counts the serve,
-                eval, clip and moment phases together.
+  (i) train   — the train step (vqwild_tpu_torch/train/step.py) at full
+                width, run right after k2, with the launch counters zeroed
+                just before and read just after (it launches neither K1 nor
+                K2; "train": 0 in the kernels line). ResNet18-F2F, 200
+                classes, 512-d, a batch of 10 triplets = 30 clips x 32 x
+                112x112 uint8 (960 frames) on the card, seeded labels with
+                repeats: for baseline, va and vasa (vasa with a seeded
+                [200, 200] word memory), 2 warm-up and 10 timed Adam steps in
+                fp32 (TF32 off), the same in bf16, one fp32 step on the
+                yuv420 wire; a line each with ms a step (median, min, max),
+                clips/s, frames/s, peak device memory and every step's
+                losses, all finite. "train_vs_cpu": 3 va steps at B 6,
+                T 2, 32x32 on the card and on the CPU from the same weights
+                and batches, each card step from the CPU's state after the
+                step before, held to TRAIN_VS_CPU_TOL. "profile_train": one
+                fp32 va step under torch.profiler: the top ten device
+                operations and the share of cuDNN convolutions forward and
+                backward.
+  (j) kernels — one {"kernels": [...]} line; ``launches`` counts the serve,
+                eval, clip, moment and train phases together.
 
 Then the card's name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -182,6 +200,22 @@ MOMENT_CLIP_SEC, MOMENT_MAX_CLIPS, MOMENT_QUERY_CAP, MOMENT_REAL_VIDEOS = 5, 26,
 # the device engine's chunk (ARVRetrievalMoment: min(rank_chunk, 32)) and its
 # super-chunk (the evaluator's default scan_chunks)
 MOMENT_DEVICE_CHUNK, MOMENT_SCAN_CHUNKS = 32, 16
+# the train step at the JAX package's defaults (core/config.py): 10 triplets
+# of 32 x 112x112 clips a step, 200 classes, 200-d word embeddings
+TRAIN_TRIPLETS, TRAIN_NCLASS, TRAIN_SEM_DIM = 10, 200, 200
+TRAIN_WARMUP, TRAIN_TIMED = 2, 10
+# card against CPU, 3 va steps at B 6, T 2, 32x32, each card step from the
+# CPU's state: losses 1e-3 (5e-4 is the JAX test's one-step bound), BN
+# running means 1e-4 and variances 1e-2 relative, the memory 1e-4, every
+# parameter within an Adam step's 2·lr, and at most 0.5% of the elements
+# with a resolved gradient beyond 1e-5 (the JAX tests allow 0.2%), over all
+# parameters and over the non-local block's alone
+TRAIN_VS_CPU_TOL = {"loss": 1e-3, "bn_mean": 1e-4, "bn_var_rel": 1e-2, "memory": 1e-4,
+                    "resolved_share_over_1e-5": 5e-3,
+                    "non_local_resolved_share_over_1e-5": 5e-3}
+# gradients that are 0 in exact arithmetic (the softmax is blind to φ's bias;
+# the train-mode W-BN removes W's bias): held to the 2·lr bound only
+ZERO_GRADS = ("cls_nl.phi.bias", "cls_nl.W.0.bias")
 
 
 def emit(obj) -> None:
@@ -1583,6 +1617,305 @@ def phase_moment(dev, workdir, ckpt, *, videos, queries, labels, query_cap, real
     return {"launches": launches, "windows": n_windows}
 
 
+def train_batches(n, *, triplets, frames, crop, nclass, seed):
+    """``n`` seeded batches of ``triplets`` (anchor, positive, negative)
+    clips, uint8 [3·triplets, frames, crop, crop, 3], and their labels: an
+    anchor and its positive share a label, drawn from a quarter of the
+    classes, so labels repeat within a batch and the EMA memory compounds."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        clips = rng.integers(0, 256, (3 * triplets, frames, crop, crop, 3), dtype=np.uint8)
+        pos = rng.integers(0, nclass // 4, triplets)
+        neg = (pos + 1 + rng.integers(0, nclass - 1, triplets)) % nclass
+        out.append((clips, np.stack([pos, pos, neg], axis=1).reshape(-1).astype(np.int64)))
+    return out
+
+
+def train_run(dev, method, dtype, wire, data, sem, *, warmup, timed):
+    """``warmup`` then ``timed`` train steps of a seeded full-width model on
+    batches already on the card (the loader's upload is not in the step):
+    ms a step (host clock to a synchronize after each step), clips/s,
+    frames/s, peak device memory and every timed step's losses."""
+    import torch
+
+    from vqwild_tpu_torch.core.config import ModelConfig
+    from vqwild_tpu_torch.models.arv import build_model
+    from vqwild_tpu_torch.ops.preprocess import rgb_to_yuv420_host
+    from vqwild_tpu_torch.train.step import create_train_state, make_optimizer, make_train_step
+
+    cuda = dev.type == "cuda"  # a rehearsal on the CPU times nothing of the card
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    cfg = ModelConfig(method=method, nclass=TRAIN_NCLASS, semantic_dim=TRAIN_SEM_DIM,
+                      compute_dtype=dtype)
+    model = build_model(cfg, device=dev, seed=0)
+    tx = make_optimizer(init_lr=1e-4, weight_decay=1e-5, steps_per_epoch=100, lr_decay_epoch=9)
+    state = create_train_state(model, tx, seed=1)
+    step = make_train_step(model, tx, semantic_memory=sem if method == "vasa" else None,
+                           wire=wire)
+    on_card = [(tuple(torch.from_numpy(a).to(dev) for a in
+                      (rgb_to_yuv420_host(c) if wire == "yuv420" else (c,))),
+                torch.from_numpy(y).to(dev)) for c, y in data]
+    ms, losses = [], []
+    for i in range(warmup + timed):
+        arrays, labels = on_card[i % len(on_card)]
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, ls = step(state, *arrays, labels)
+        if cuda:
+            torch.cuda.synchronize()
+        if i >= warmup:
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(ls)
+    losses = [{k: float(v) for k, v in ls.items()} for ls in losses]
+    if not all(np.isfinite(v) for ls in losses for v in ls.values()):
+        raise AssertionError(f"train {method} {dtype} {wire}: a loss is not finite: {losses}")
+    n_clips = int(on_card[0][1].shape[0])
+    n_frames = n_clips * int(on_card[0][0][0].shape[1])
+    med = float(np.median(ms))
+    row = {"phase": "train", "method": method, "dtype": dtype, "wire": wire,
+           "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
+           "clips": n_clips, "frames": n_frames, "warmup_steps": warmup,
+           "timed_steps": timed, "ms_per_step_median": med, "ms_per_step_min": min(ms),
+           "ms_per_step_max": max(ms), "clips_per_s": n_clips / med * 1e3,
+           "frames_per_s": n_frames / med * 1e3,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+           "params": sum(p.numel() for p in model.parameters()), "losses": losses}
+    emit(row)
+    return row
+
+
+def phase_train(dev, *, triplets, frames, crop, warmup, timed):
+    """The train step at full width for baseline, va and vasa: fp32 (TF32
+    off) and bf16 over the same seeded batches, then one fp32 step on the
+    yuv420 wire. The launch counters are zeroed just before and read just
+    after: training runs neither K1 nor K2."""
+    import torch
+
+    from vqwild_tpu_torch.ops import distance, stem_pool
+
+    data = train_batches(2, triplets=triplets, frames=frames, crop=crop, nclass=TRAIN_NCLASS,
+                         seed=11)
+    sem = np.random.default_rng(12).standard_normal((TRAIN_NCLASS, TRAIN_SEM_DIM))
+    sem = (sem / np.linalg.norm(sem, axis=1, keepdims=True)).astype(np.float32)
+    distance.launches.reset()
+    stem_pool.launches.reset()
+    rows = []
+    for method in ("baseline", "va", "vasa"):
+        for dtype in ("float32", "bfloat16"):
+            rows.append(train_run(dev, method, dtype, "rgb", data, sem, warmup=warmup,
+                                  timed=timed))
+        rows.append(train_run(dev, method, "float32", "yuv420", data[:1], sem, warmup=0,
+                              timed=1))
+    launches = {"sq_l2": distance.launches.n, "stem_s2d_pool": stem_pool.launches.n}
+    if any(launches.values()):
+        raise AssertionError(f"the train step launched a retrieval kernel: {launches}")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": launches, "rows": rows}
+
+
+def train_vs_cpu(dev, *, steps, batch, frames, crop):
+    """The same seeded weights and batches (``batch`` clips of ``frames`` x
+    ``crop``², va, Adam, dropout off: the CPU's and the card's generators
+    draw different masks) for ``steps`` steps on the card and on the CPU.
+    Each card step starts from the CPU run's parameters, BN statistics and
+    memory after the step before (the optimizer's moments are the card's
+    own): two fp32 programs that start a step from one state agree to
+    rounding, and free-running they drift through ReLUs near their kink.
+    After each step the largest differences of the losses, parameters, BN
+    statistics and memory, and the share of the parameter elements with a
+    resolved gradient (|g| > 1e-3 of the tensor's largest on the card) that
+    differ by more than 1e-5, over all parameters and over the non-local
+    block's alone, are held to TRAIN_VS_CPU_TOL; every parameter to an Adam
+    step's 2·lr (a small gradient's sign may differ). The two biases whose
+    gradient is 0 in exact arithmetic (ZERO_GRADS) are held to 2·lr only."""
+    import torch
+
+    from vqwild_tpu_torch.models.arv import ARVModel, init_model
+    from vqwild_tpu_torch.train.step import create_train_state, make_optimizer, make_train_step
+
+    rng = np.random.default_rng(13)
+    data = [(rng.integers(0, 256, (batch, frames, crop, crop, 3), dtype=np.uint8),
+             rng.integers(0, 20, batch // 2).repeat(2)) for _ in range(steps)]
+    lr = 1e-4
+    runs = {}
+    for d in (torch.device("cpu"), dev):
+        model = init_model(ARVModel("va", nclass=20, dropout=0.0, nl_dropout=0.0), seed=3).to(d)
+        tx = make_optimizer(init_lr=lr, weight_decay=1e-5, steps_per_epoch=100, lr_decay_epoch=9)
+        state = create_train_state(model, tx, seed=1)
+        grads = []
+        state.optimizer.register_step_pre_hook(lambda opt, args, kwargs: grads.append(
+            {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}))
+        step = make_train_step(model, tx)
+        states, losses = [], []
+        for i, (clips, labels) in enumerate(data):
+            if d.type == "cuda" and i > 0:
+                model.load_state_dict(runs["cpu"]["states"][i - 1])
+            state, ls = step(state, clips, labels)
+            losses.append({k: float(v) for k, v in ls.items()})
+            states.append({k: v.detach().cpu().clone() for k, v in model.state_dict().items()})
+        runs[d.type] = {"states": states, "losses": losses, "grads": grads}
+    tol = TRAIN_VS_CPU_TOL
+    out = {"phase": "train_vs_cpu", "method": "va", "steps": steps,
+           "shape": [batch, frames, crop, crop, 3], "tolerance": tol, "per_step": []}
+    for i in range(steps):
+        a, b, g = runs["cuda"]["states"][i], runs["cpu"]["states"][i], runs["cuda"]["grads"][i]
+        diff = {k: (a[k].float() - b[k].float()).abs() for k in b}
+        counts = {"all": [0, 0], "non_local": [0, 0]}
+        for name, gr in g.items():
+            if name in ZERO_GRADS:
+                continue
+            mask = gr.abs() > 1e-3 * gr.abs().max()
+            if not mask.any():  # a gradient 0 everywhere: only weight decay moved it
+                mask[...] = True
+            off = int((diff[name][mask] > 1e-5).sum())
+            for key in ("all", "non_local") if name.startswith("cls_nl.") else ("all",):
+                counts[key][0] += off
+                counts[key][1] += int(mask.sum())
+        row = {
+            "loss": max(abs(runs["cuda"]["losses"][i][k] - runs["cpu"]["losses"][i][k])
+                        for k in runs["cpu"]["losses"][i]),
+            "param_max": max(float(diff[n].max()) for n in g),
+            "resolved_share_over_1e-5": counts["all"][0] / counts["all"][1],
+            "non_local_resolved_share_over_1e-5": counts["non_local"][0] / counts["non_local"][1],
+            "all_share_over_1e-5": sum(int((diff[n] > 1e-5).sum()) for n in g) / sum(
+                diff[n].numel() for n in g),
+            "bn_mean": max(float(v.max()) for k, v in diff.items() if k.endswith("running_mean")),
+            "bn_var_rel": max(float((v / b[k].abs().clamp_min(1e-6)).max())
+                              for k, v in diff.items() if k.endswith("running_var")),
+            "memory": float(diff["visual_memory"].max())}
+        out["per_step"].append(row)
+        bad = [k for k in tol if not row[k] <= tol[k]]
+        if bad or not row["param_max"] <= 2 * lr:
+            raise AssertionError(f"train_vs_cpu step {i}: {row} against {tol}")
+    emit(out)
+    return out
+
+
+def stem_s2d(x, weight):
+    """The 7x7/2 stem as the JAX trunk's ``stem_s2d`` computes it, a 4x4/1
+    conv over 2x2 space-to-depth input (even H and W): the [64,12,4,4]
+    kernel is a re-index of the [64,3,1,7,7] weight, ks[o, (r*2+s)*3+c, a, b]
+    = k[o, c, 2(a-2)+r+3, 2(b-2)+s+3], zero outside the 7x7. The port's trunk
+    runs the 7x7 conv; ``train_choices`` times this against it."""
+    import torch.nn.functional as F
+
+    n, c, h, w = x.shape
+    o = weight.shape[0]
+    # one zero row/column in front puts tap 2(a-2)+r+3 at 2a+r of 8
+    kp = F.pad(weight[:, :, 0].to(x.dtype), (1, 0, 1, 0))  # [O, C, 8, 8]
+    ks = kp.reshape(o, c, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4).reshape(o, 4 * c, 4, 4)
+    xs = x.reshape(n, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
+    return F.conv2d(F.pad(xs.reshape(n, 4 * c, h // 2, w // 2), (2, 1, 2, 1)), ks)
+
+
+def train_choices(dev, *, frames, crop):
+    """The train step's two choices between formulations of one function,
+    each timed forward and backward (CUDA events) against the other at the
+    full-width stem's shapes, fp32 (TF32 off) and bf16: the stem, the trunk's 7x7/2 conv against ``stem_s2d``
+    ([frames, 3, crop, crop], the weight's gradient); the stem BN in train
+    mode ([frames, 64, crop/2, crop/2], the gradients of the input, weight
+    and bias), ``F.batch_norm`` against ``TorchBatchNorm.split_statistics``.
+    Also the largest difference of each pair's outputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from vqwild_tpu_torch.models.heads import TorchBatchNorm
+    from vqwild_tpu_torch.models.resnet_f2f import Conv2dF2F
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    out = {"phase": "train_choices", "stem_shape": [frames, 3, crop, crop],
+           "bn_shape": [frames, 64, crop // 2, crop // 2]}
+    for dt in (torch.float32, torch.bfloat16):
+        row = {}
+        x = torch.randn(frames, 3, crop, crop, generator=gen, device=dev).to(dt)
+        cot = torch.randn(frames, 64, crop // 2, crop // 2, generator=gen, device=dev).to(dt)
+        conv = Conv2dF2F(3, 64, 7, 2, 3).to(dev)
+        stems = {"stem_7x7_ms": conv, "stem_s2d_ms": lambda x: stem_s2d(x, conv.weight)}
+        with torch.no_grad():
+            row["stem_max_abs_diff"] = float((conv(x).float() - stem_s2d(x, conv.weight).float())
+                                             .abs().max())
+        for name, fn in stems.items():
+            row[name] = time_ms(lambda fn=fn: torch.autograd.grad(fn(x), conv.weight, cot),
+                                iters=10)
+        del x
+        h = cot.requires_grad_()
+        forms = {
+            "bn_fused_ms": (TorchBatchNorm(64, 1e-3, 0.01).to(dev), lambda bn: F.batch_norm(
+                h, bn.running_mean, bn.running_var, bn.weight, bn.bias, True, bn.momentum,
+                bn.eps)),
+            "bn_split_ms": (TorchBatchNorm(64, 1e-3, 0.01).to(dev),
+                            lambda bn: bn.split_statistics(h))}
+        with torch.no_grad():
+            fused, split = (fn(bn).float() for bn, fn in forms.values())
+            row["bn_max_abs_diff"] = float((fused - split).abs().max())
+            del fused, split
+        for name, (bn, fn) in forms.items():
+            row[name] = time_ms(lambda bn=bn, fn=fn: torch.autograd.grad(
+                fn(bn), (h, bn.weight, bn.bias), cot), iters=10)
+        out[str(dt).split(".")[-1]] = row
+        del h, cot
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def profile_train(dev, *, triplets, frames, crop):
+    """One fp32 va step at full width under torch.profiler (after two
+    unprofiled steps): the ten device operations that take the most time,
+    and the share of the device time in cuDNN convolutions forward
+    (aten::cudnn_convolution) and backward (aten::convolution_backward)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vqwild_tpu_torch.core.config import ModelConfig
+    from vqwild_tpu_torch.models.arv import build_model
+    from vqwild_tpu_torch.train.step import create_train_state, make_optimizer, make_train_step
+
+    (clips, labels), = train_batches(1, triplets=triplets, frames=frames, crop=crop,
+                                     nclass=TRAIN_NCLASS, seed=14)
+    model = build_model(ModelConfig(method="va", nclass=TRAIN_NCLASS), device=dev, seed=0)
+    tx = make_optimizer(init_lr=1e-4, weight_decay=1e-5, steps_per_epoch=100, lr_decay_epoch=9)
+    state = create_train_state(model, tx, seed=1)
+    step = make_train_step(model, tx)
+    clips, labels = torch.from_numpy(clips).to(dev), torch.from_numpy(labels).to(dev)
+    for _ in range(2):
+        state, _ = step(state, clips, labels)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the tracer loses the first kernels after it starts: tiny ones go first
+        warm = torch.zeros(1, device=dev)
+        for _ in range(16):
+            warm.add_(1.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, clips, labels)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_ms_by_kernel(prof)
+    device_ms = sum(kernels.values())
+    ops = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+           if e.key in ("aten::cudnn_convolution", "aten::convolution_backward")}
+    conv_fwd, conv_bwd = ops.get("aten::cudnn_convolution", 0.0), ops.get(
+        "aten::convolution_backward", 0.0)
+    calls = {e.key: e.count for e in prof.key_averages() if "Launch" in e.key}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    out = {"phase": "profile_train", "what": "one fp32 va step, 30 clips x 32 x 112x112",
+           "wall_ms": wall_ms, "device_ms": device_ms if kernels else "not traced",
+           "device_busy_share": device_ms / wall_ms if kernels else "not traced",
+           "conv_fwd_ms": conv_fwd, "conv_bwd_ms": conv_bwd,
+           "conv_fwd_share": conv_fwd / device_ms if kernels else "not traced",
+           "conv_bwd_share": conv_bwd / device_ms if kernels else "not traced",
+           "runtime_calls": calls, "n_kernel_names": len(kernels),
+           "top_kernels_ms": [[k[:90], v] for k, v in top]}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1608,6 +1941,11 @@ def main() -> int:
 
     k1 = phase_k1(dev, K1_SHAPES)
     k2 = phase_k2(dev, K2_CASES)
+    train = phase_train(dev, triplets=TRAIN_TRIPLETS, frames=FRAMES, crop=CROP,
+                        warmup=TRAIN_WARMUP, timed=TRAIN_TIMED)
+    train_choices(dev, frames=TRAIN_TRIPLETS * 3 * FRAMES, crop=CROP)
+    train_vs_cpu(dev, steps=3, batch=6, frames=2, crop=32)
+    profile_train(dev, triplets=TRAIN_TRIPLETS, frames=FRAMES, crop=CROP)
     with tempfile.TemporaryDirectory() as workdir:
         serve = phase_serve(dev, workdir, batches=EMBED_BATCHES, clips=CLIPS, frames=FRAMES,
                             crop=CROP, gallery_rows=GALLERY_ROWS, ref_clips=2, ref_frames=4,
@@ -1637,7 +1975,7 @@ def main() -> int:
     k1_moment_device = next(r for r in k1 if tuple(r["shape"]) == K1_MOMENT_DEVICE_CHUNK)
     k2_main = k2[0]  # an embed batch in fp32, the serving dtype
     paths = {"serve": serve["launches"], "eval": evald["launches"], "clip": clip["launches"],
-             "moment": moment["launches"]}
+             "moment": moment["launches"], "train": train["launches"]}
     launches = {k: sum(p[k] for p in paths.values()) for k in serve["launches"]}
     chunk_keys = ("shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [

@@ -59,8 +59,10 @@ class ModelConfig:
     bn_momentum: float = 0.01  # torch convention: new = (1-m)*old + m*batch
     compute_dtype: str = "float32"  # "bfloat16" for a faster trunk
     param_dtype: str = "float32"
-    # compute the 7x7/2 stem as a 4x4/1 conv over space-to-depth input at
-    # train time (exact math, same [7,7,3,64] parameter; models/resnet_f2f.py)
+    # the JAX trunk's choice of its 7x7/2 stem as a 4x4/1 conv over
+    # space-to-depth input (the same function); the port's trunk always runs
+    # the 7x7 conv (models/resnet_f2f.py) and carries the field for the
+    # config JSON
     stem_s2d: bool = False
 
 

@@ -1,10 +1,11 @@
 """Weights into the port: from the JAX package's variables, or from a
-reference-format ``best.pth.tar``.
+reference-format ``best.pth.tar``; and back to the JAX package's layout.
 
-The port's ``ResNet18F2F`` uses the reference checkpoint's key names and
-Conv3d weight shapes, so both paths end in one ``state_dict`` layout:
+The port's ``ResNet18F2F`` and ``ARVModel`` use the reference checkpoint's
+key names and weight shapes, so both paths end in one ``state_dict`` layout:
 
   flax kernel [kh,kw,I,O] → conv weight [O,I,1,kh,kw]
+  flax kernel [I,O]       → linear weight [O,I] / conv1d [O,I,1] (non-local)
   flax BN scale/bias + batch_stats mean/var → weight/bias/running_mean/
                                               running_var (+ num_batches_tracked)
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from vqwild_tpu_torch.core.device import resolve_device
+from vqwild_tpu_torch.models.arv import ARVModel
 from vqwild_tpu_torch.models.resnet_f2f import ResNet18F2F
 
 # top-level checkpoint entries that are heads, not trunk (baseline fc; va and
@@ -63,6 +65,86 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
     return sd
 
 
+def _linear(sd: dict, prefix: str, p: Mapping, conv1d: bool = False) -> None:
+    w = np.asarray(p["kernel"], np.float32).T  # [I, O] → [O, I]
+    sd[prefix + ".weight"] = torch.from_numpy(np.ascontiguousarray(w[:, :, None] if conv1d else w))
+    sd[prefix + ".bias"] = torch.from_numpy(np.asarray(p["bias"], np.float32).copy())
+
+
+def nonlocal_state_dict_from_jax(p: Mapping, s: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A JAX ``NonLocal1D``/``NonLocalND``'s params ``p`` and batch_stats
+    ``s`` → the port's block's state_dict (keys under ``prefix``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("theta", "phi", "g"):
+        _linear(sd, f"{prefix}{name}", p[name], conv1d=True)
+    _linear(sd, f"{prefix}W.0", p["w"], conv1d=True)
+    _bn(sd, f"{prefix}W.1", p["w_bn"], s["w_bn"])
+    return sd
+
+
+def arv_state_dict_from_jax(variables: Mapping[str, Any], method: str) -> Dict[str, torch.Tensor]:
+    """The JAX package's full-model ``{"params", "batch_stats"[, "memory"]}``
+    (numpy arrays) → the port's ``ARVModel`` state_dict for ``method``, the
+    key names and shapes of vqwild_tpu/models/torch_export.py:57-119 (no
+    ``module.`` prefix, no dead ``rank_nl``)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd = state_dict_from_jax(variables)
+    _linear(sd, "fc", p["fc"])
+    if method in ("va", "vasa"):
+        sd["visual_memory"] = torch.from_numpy(
+            np.asarray(variables["memory"]["visual_memory"], np.float32).copy())
+        sd.update(nonlocal_state_dict_from_jax(p["cls_nl"], s["cls_nl"], "cls_nl."))
+        _linear(sd, "nled_fc", p["nled_fc"])
+    if method == "vasa":
+        for sub in ("fc", "fc2", "fc3", "fc4"):
+            _linear(sd, f"word_adaptor.{sub}", p["word_adaptor"][sub])
+    return sd
+
+
+def jax_variables_from_arv(model: ARVModel) -> Dict[str, dict]:
+    """Inverse of ``arv_state_dict_from_jax``: the model's state →
+    ``{"params", "batch_stats"[, "memory"]}`` of numpy arrays in the JAX
+    package's layout (``num_batches_tracked`` has no counterpart there)."""
+    sd = {k: v.detach().float().cpu().numpy() for k, v in model.state_dict().items()}
+
+    def conv(key):
+        return {"kernel": np.ascontiguousarray(np.transpose(sd[key][:, :, 0], (2, 3, 1, 0)))}
+
+    def lin(prefix):
+        w = sd[prefix + ".weight"]
+        w = w[:, :, 0] if w.ndim == 3 else w
+        return {"kernel": np.ascontiguousarray(w.T), "bias": sd[prefix + ".bias"]}
+
+    def bn(prefix):
+        return ({"scale": sd[prefix + ".weight"], "bias": sd[prefix + ".bias"]},
+                {"mean": sd[prefix + ".running_mean"], "var": sd[prefix + ".running_var"]})
+
+    tp, ts = {"conv1": conv("conv1.weight")}, {}
+    tp["bn1"], ts["bn1"] = bn("bn1")
+    for li in range(1, len(model.stage_sizes) + 1):
+        for bi in range(model.stage_sizes[li - 1]):
+            pre, name = f"layer{li}.{bi}", f"layer{li}_{bi}"
+            fp, fs = {"conv1": conv(pre + ".conv1.weight"), "conv2": conv(pre + ".conv2.weight")}, {}
+            fp["bn1"], fs["bn1"] = bn(pre + ".bn1")
+            fp["bn2"], fs["bn2"] = bn(pre + ".bn2")
+            if pre + ".downsample.0.weight" in sd:
+                fp["downsample_conv"] = conv(pre + ".downsample.0.weight")
+                fp["downsample_bn"], fs["downsample_bn"] = bn(pre + ".downsample.1")
+            tp[name], ts[name] = fp, fs
+    params, stats = {"trunk": tp, "fc": lin("fc")}, {"trunk": ts}
+    out = {"params": params, "batch_stats": stats}
+    if model.method in ("va", "vasa"):
+        nl = {n: lin(f"cls_nl.{n}") for n in ("theta", "phi", "g")}
+        nl["w"] = lin("cls_nl.W.0")
+        nl["w_bn"], w_bn_stats = bn("cls_nl.W.1")
+        params["cls_nl"], stats["cls_nl"] = nl, {"w_bn": w_bn_stats}
+        params["nled_fc"] = lin("nled_fc")
+        out["memory"] = {"visual_memory": sd["visual_memory"]}
+    if model.method == "vasa":
+        params["word_adaptor"] = {n: lin(f"word_adaptor.{n}") for n in ("fc", "fc2", "fc3", "fc4")}
+    return out
+
+
 def trunk_from_state_dict(sd: Mapping[str, torch.Tensor]) -> ResNet18F2F:
     """A ``ResNet18F2F`` (on the CPU) whose stage sizes and widths are read
     off ``sd``, loaded with ``strict=True``."""
@@ -91,15 +173,36 @@ def load_reference_checkpoint(path: str, device: Union[str, torch.device] = "cud
     reconstructors allowed (``_numpy_safe_globals``), never with
     ``weights_only=False``: no other global can run while it loads."""
     dev = resolve_device(device)
+    sd = _read_reference_state_dict(path)
+    trunk = {k: v for k, v in sd.items() if k.split(".", 1)[0] not in _NON_TRUNK}
+    return trunk_from_state_dict(trunk).to(dev)
+
+
+def load_reference_model(path: str, method: str, device: Union[str, torch.device] = "cuda",
+                         **model_kwargs) -> ARVModel:
+    """A reference-format ``best.pth.tar`` of ``method`` → the full
+    ``ARVModel`` on ``device``, loaded with ``strict=True``. Only the dead
+    ``rank_nl.*`` keys are dropped (vqwild_tpu/models/arv.py:19-21; the JAX
+    importer skips them too). ``nclass`` and ``semantic_dim`` are read off
+    the weights; ``model_kwargs`` go to ``ARVModel``. The file is read as
+    ``load_reference_checkpoint`` reads it."""
+    dev = resolve_device(device)
+    sd = {k: v for k, v in _read_reference_state_dict(path).items()
+          if not k.startswith("rank_nl.")}
+    model_kwargs.setdefault("nclass", int(sd["fc.weight"].shape[0]))
+    if "word_adaptor.fc4.weight" in sd:
+        model_kwargs.setdefault("semantic_dim", int(sd["word_adaptor.fc4.weight"].shape[0]))
+    model = ARVModel(method=method, **model_kwargs)
+    model.load_state_dict(sd, strict=True)
+    return model.to(dev)
+
+
+def _read_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A reference ``best.pth.tar``'s state_dict, ``module.`` prefixes cut."""
     with torch.serialization.safe_globals(_numpy_safe_globals()):
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt["state_dict"] if "state_dict" in ckpt else ckpt
-    trunk = {}
-    for k, v in sd.items():
-        k = k[len("module."):] if k.startswith("module.") else k
-        if k.split(".", 1)[0] not in _NON_TRUNK:
-            trunk[k] = v
-    return trunk_from_state_dict(trunk).to(dev)
+    return {(k[len("module."):] if k.startswith("module.") else k): v for k, v in sd.items()}
 
 
 def _numpy_safe_globals() -> list:

@@ -1,7 +1,7 @@
 """Feature extraction for the server and the evaluators.
 
 Counterpart of vqwild_tpu/retrieval/features.py. ``make_feat_fn`` (the
-JAX function's folded, single-device branch) is the eval forward →
+JAX function's folded and unfolded single-device branches) is the eval forward →
 per-frame embeddings L2-normalized over the channel dim → numpy [B, C, T],
 the reference's feat_func contract (main.py:220-233);
 ``make_fake_feat_fn`` is the fake-feature backend (--memory_leak_debug,
@@ -17,6 +17,7 @@ the per-video feature tapes of the untrimmed galleries.
 
 from __future__ import annotations
 
+import copy
 import os
 from typing import Callable, List, Optional, Sequence, Union
 
@@ -39,33 +40,63 @@ from vqwild_tpu_torch.data.longvideo import (
 )
 from vqwild_tpu_torch.data.schema import VideoRecord
 from vqwild_tpu_torch.models.fold import make_embed_fn
+from vqwild_tpu_torch.models.heads import l2_normalize
 from vqwild_tpu_torch.models.resnet_f2f import BN_EPS, ResNet18F2F
 from vqwild_tpu_torch.ops.hostmem import alloc_array
-from vqwild_tpu_torch.ops.preprocess import rgb_to_yuv420_host
+from vqwild_tpu_torch.ops.preprocess import (
+    normalize_clips,
+    normalize_clips_yuv420,
+    rgb_to_yuv420_host,
+)
 
 log = get_logger("retrieval.features")
 
 
 def make_feat_fn(trunk: ResNet18F2F, *, wire: str = "rgb", dtype=torch.float32,
-                 bn_eps: float = BN_EPS,
+                 bn_eps: float = BN_EPS, folded: bool = True,
                  device: Union[str, torch.device] = "cuda") -> Callable:
     """Returns f(clips [B,T,s,s,C] uint8-cropped or float) → np [B, C, T].
 
     ``wire="yuv420"`` returns f(y [B,T,s,s] u8, uv [B,T,s/2,s/2,2] u8)
-    instead; the chroma upsample, BT.601 and normalize then fold into the
-    space-to-depth stem (fold.stem_to_yuv_s2d), which runs as kernel K2.
-    Both run the BN-folded trunk in ``dtype`` on ``device``, folded with the
-    trained module's block/stem BN epsilon ``bn_eps`` (ModelConfig.bn_eps)."""
+    instead. ``folded=True`` (the default) runs the BN-folded trunk in
+    ``dtype`` on ``device``, folded with the trained module's block/stem BN
+    epsilon ``bn_eps`` (ModelConfig.bn_eps); on the yuv420 wire the chroma
+    upsample, BT.601 and normalize then fold into the space-to-depth stem
+    (fold.stem_to_yuv_s2d), which runs as kernel K2.
+
+    ``folded=False`` keeps the trained module's eval graph: ``trunk`` (a
+    ``ResNet18F2F`` or an ``ARVModel``, whose weights are copied now, as the
+    JAX function captures its variables) in its own compute dtype and BN
+    epsilon, after ``ops/preprocess.normalize_clips`` or
+    ``normalize_clips_yuv420``; the per-frame embeddings are L2-normalized
+    over C. ``dtype`` and ``bn_eps`` must then be the module's."""
     if wire not in ("rgb", "yuv420"):
         raise ValueError(f"unknown wire format {wire!r}")
     dev = resolve_device(device)
-    fwd = make_embed_fn(trunk.state_dict(), dtype=dtype,
-                        stem_mode="yuv_s2d" if wire == "yuv420" else "conv7", bn_eps=bn_eps,
-                        device=dev)
+    if folded:
+        fwd = make_embed_fn(trunk.state_dict(), dtype=dtype,
+                            stem_mode="yuv_s2d" if wire == "yuv420" else "conv7",
+                            bn_eps=bn_eps, device=dev)
+    else:
+        if dtype != trunk.dtype or bn_eps != trunk.bn1.eps:
+            raise ValueError(f"folded=False runs the module as built (dtype {trunk.dtype}, "
+                             f"bn_eps {trunk.bn1.eps}); got dtype {dtype}, bn_eps {bn_eps}")
+        net = copy.deepcopy(trunk).to(dev).requires_grad_(False)
+
+        def fwd(*arrays):
+            if wire == "yuv420":
+                x = normalize_clips_yuv420(*arrays, out_dtype=net.dtype)
+            else:
+                (x,) = arrays
+                if x.dtype == torch.uint8:
+                    x = normalize_clips(x, out_dtype=net.dtype)
+            fe = ResNet18F2F.forward(net, x, train=False)  # [B, T, C]
+            return l2_normalize(fe, axis=-1).transpose(1, 2)
 
     def feat_fn(*arrays):
         tensors = [torch.as_tensor(np.asarray(a)).to(dev) for a in arrays]
-        return fwd(*tensors).cpu().numpy()
+        with torch.inference_mode():
+            return fwd(*tensors).cpu().numpy()
 
     return feat_fn
 
