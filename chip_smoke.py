@@ -11,8 +11,9 @@ Phases, each printing one JSON line:
   (c) k1      — K1 against its plain PyTorch version at the serving shapes
                 (a full bucket of 16 queries and a single one), at a rank
                 chunk of the trimmed (256 queries), clip (256) and moment
-                (128) evaluators and of the moment device engine (32 against
-                1,466,542 rows), and at two ragged ones:
+                (128) evaluators, of the moment device engine (32 against
+                1,466,542 rows) and of the training loop's validation (60
+                against 180), and at two ragged ones:
                 rtol 1e-5 / atol 1e-3 on N(0,1) data, and
                 top-30 rows identical on a gallery with planted,
                 well-separated neighbours (tie-free by construction). Each
@@ -137,8 +138,34 @@ Phases, each printing one JSON line:
                 fp32 va step under torch.profiler: the top ten device
                 operations and the share of cuDNN convolutions forward and
                 backward.
-  (j) kernels — one {"kernels": [...]} line; ``launches`` counts the serve,
-                eval, clip, moment and train phases together.
+  (j) loop    — the training loop (train/loop.py) from the host loader at
+                full width, run first in the temp directory, with the launch
+                counters zeroed just before and read just after. A seeded DB
+                whose training split covers 200 classes (160 base, 40 novel
+                cut to novel_num 5) over the synthetic frame store; TrainLoop
+                → PrefetchLoader (8 threads, capped at the host's cores) →
+                make_train_step: va, 10 triplets = 30 clips x 32 x 112x112
+                on the rgb wire, Adam lr 1e-4 wd 1e-5, fp32 with TF32 off; 2
+                epochs of 12 steps, a print every 4, validation every epoch
+                through ARVRetrievalTrimmed over make_feat_fn of the state's
+                model (K1 once a chunk: 60 queries against 180 rows, the
+                shape phase k1 holds to its plain version, checked against
+                the run) on a validation split cut to 180 records (printed
+                as ``reduced``), best and last to disk. One
+                line "loop": ms a step over the last epoch (CUDA events, step
+                end to step end), clips/s, the share of the epoch the loop
+                waited for the loader, peak device memory, the host's cores
+                and the effective workers, every epoch's history (losses
+                finite, ap in [0, 1]), the validation seconds; the loader
+                alone in clips/s at 1, 2, 4 and the effective workers, on
+                both wires; a resume from ``last`` into a state built anew
+                (every tensor bit-equal, start epoch 2) and one more epoch
+                under torch.profiler (stream synchronisations at most one a
+                loss readback); a NaN parameter that halts the loop at the
+                next print; a yuv420 run of 1 epoch of 2 steps with a yuv420
+                validation (K2 once an embed batch).
+  (k) kernels — one {"kernels": [...]} line; ``launches`` counts the serve,
+                eval, clip, moment, train and loop phases together.
 
 Then the card's name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -168,7 +195,8 @@ TF32_FLOPS = 495e12  # H100 SXM, TF32 tensor cores, dense
 
 # the smoke's gallery at a full query bucket and at one query (a sequential
 # request), a gallery four times the L2 cache, two ragged shapes, a rank
-# chunk of the trimmed, of the clip and of the moment evaluator
+# chunk of the trimmed, of the clip and of the moment evaluator, and the
+# training loop's validation
 K1_EVAL_CHUNK = (256, 7670, 512)  # one rank chunk of the trimmed evaluator
 K1_CLIP_CHUNK = (256, 100000, 512)  # one rank chunk of the clip evaluator
 # one rank chunk of the moment evaluator over the moment phase's gallery:
@@ -176,8 +204,11 @@ K1_CLIP_CHUNK = (256, 100000, 512)  # one rank chunk of the clip evaluator
 K1_MOMENT_CHUNK = (128, 1466542, 512)
 # one chunk of the moment evaluator's device engine (32 queries) over it
 K1_MOMENT_DEVICE_CHUNK = (32, 1466542, 512)
+# the training loop's validation: its 60 queries in one chunk against the 180
+# records of its validation split (phase_loop checks both)
+K1_LOOP_CHUNK = (60, 180, 512)
 K1_SHAPES = [(16, 7670, 512), (16, 100000, 512), (1, 7670, 512), (5, 130, 512), (300, 1000, 64),
-             K1_EVAL_CHUNK, K1_CLIP_CHUNK, K1_MOMENT_CHUNK, K1_MOMENT_DEVICE_CHUNK]
+             K1_EVAL_CHUNK, K1_CLIP_CHUNK, K1_MOMENT_CHUNK, K1_MOMENT_DEVICE_CHUNK, K1_LOOP_CHUNK]
 # galleries that cannot sit in L2: their times are held to their bounds
 K1_BEYOND_L2 = ((16, 100000, 512), K1_CLIP_CHUNK, K1_MOMENT_CHUNK, K1_MOMENT_DEVICE_CHUNK)
 # an embed batch (30 clips x 32 frames) in both types, a clip query in fp32
@@ -204,6 +235,15 @@ MOMENT_DEVICE_CHUNK, MOMENT_SCAN_CHUNKS = 32, 16
 # of 32 x 112x112 clips a step, 200 classes, 200-d word embeddings
 TRAIN_TRIPLETS, TRAIN_NCLASS, TRAIN_SEM_DIM = 10, 200, 200
 TRAIN_WARMUP, TRAIN_TIMED = 2, 10
+# the training loop at the JAX package's defaults (core/config.py): 10
+# triplets a step, 8 loader threads (capped at the host's cores), va; 2
+# epochs of 12 steps, a print every 4; the validation split cut to 25 base
+# and 5 novel labels of 5 records and 30 noise records (180 records, 6 embed
+# batches: its extraction is host-bound); the loader alone at 1, 2, 4 and
+# the effective workers
+LOOP_EPOCHS, LOOP_STEPS, LOOP_PRINT_FREQ, LOOP_WORKERS = 2, 12, 4, 8
+LOOP_VAL_LABELS, LOOP_VAL_PER_LABEL, LOOP_VAL_NOISE = 30, 5, 30
+LOOP_LOADER_WORKERS = (1, 2, 4)
 # card against CPU, 3 va steps at B 6, T 2, 32x32, each card step from the
 # CPU's state: losses 1e-3 (5e-4 is the JAX test's one-step bound), BN
 # running means 1e-4 and variances 1e-2 relative, the memory 1e-4, every
@@ -1916,6 +1956,371 @@ def profile_train(dev, *, triplets, frames, crop):
     return out
 
 
+def write_train_db(workdir, *, nclass, novel, per_class, val_labels, val_per_label, val_noise,
+                   seed):
+    """A seeded trimmed DB for training and its split-spec JSON. The
+    ``training`` split holds all ``nclass`` labels: ``nclass - novel`` base
+    labels with ``per_class`` records each and ``novel`` labels (half
+    validation-novel, half test-novel) with ``per_class`` records, which
+    ``TrimmedDB.training_for_fewshot`` cuts to ``novel_num``; and 10 noise
+    records, which it drops. The ``validation`` split holds ``val_per_label``
+    records (the first two queries) of ``val_labels`` labels, the first of
+    them base and the last 5 validation-novel, and ``val_noise`` noise
+    records. Every record is a video of its own. Returns the spec's path."""
+    rng = np.random.default_rng(seed)
+    names = [f"activity_{i:03d}" for i in range(nclass)]
+    n_base = nclass - novel
+    val_novel = names[n_base:n_base + novel // 2]
+    serial = iter(range(10**9))
+
+    def record(label, subset, rtype, is_query):
+        start = float(rng.uniform(0.0, 5.0))
+        seg = [start, start + float(rng.uniform(8.0, 14.0))]
+        return {"video_id": f"t_{next(serial):07d}", "label": label, "segment": seg,
+                "border": seg, "activitynet_subset": subset,
+                "activitynet_duration": 64 / 3, "is_query": is_query, "retrieval_type": rtype}
+
+    training = {name: [record(name, "training", "base" if i < n_base else "novel", 0)
+                       for _ in range(per_class)] for i, name in enumerate(names)}
+    training["distractor_activity"] = [record("distractor_activity", "training", "noise", -1)
+                                       for _ in range(10)]
+    validation = {}
+    for name in names[:val_labels - 5] + val_novel[:5]:
+        rtype = "novel" if name in val_novel else "base"
+        validation[name] = [record(name, "validation", rtype, 1 if j < 2 else 0)
+                            for j in range(val_per_label)]
+    validation["distractor_activity"] = [record("distractor_activity", "validation", "noise", -1)
+                                         for _ in range(val_noise)]
+    with open(os.path.join(workdir, "arv_db_train.json"), "w") as f:
+        json.dump({"training": training, "validation": validation, "testing": {}}, f)
+    spec = os.path.join(workdir, "split_train.json")
+    with open(spec, "w") as f:
+        json.dump({"name": "train_smoke", "train_labels": names[:n_base],
+                   "val_labels": val_novel, "test_labels": names[n_base + novel // 2:],
+                   "db_json": "arv_db_train.json", "moment_db_json": ""}, f)
+    return spec
+
+
+class TimedLoader:
+    """A loader's epochs, with the time the loop waits for each batch (the
+    loop's data time) and each epoch's start on the host clock."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.waits, self.started = {}, {}
+        self.current = None
+
+    def epoch(self, e):
+        waits = self.waits.setdefault(e, [])
+        self.started[e] = time.perf_counter()
+        self.current = e
+        it = self.inner.epoch(e)
+        while True:
+            t0 = time.perf_counter()
+            b = next(it, None)
+            if b is None:
+                return
+            waits.append(time.perf_counter() - t0)
+            yield b
+
+
+def states_equal(a, b) -> list:
+    """The names of the tensors where two train states differ (bit for bit):
+    model, optimizer state, step, generator, pending gradient mean."""
+    import torch
+
+    bad = [k for k, v in a.model.state_dict().items()
+           if not torch.equal(v, b.model.state_dict()[k])]
+    oa, ob = a.optimizer.state_dict(), b.optimizer.state_dict()
+    bad += [f"optimizer.{i}.{k}" for i in oa["state"] for k, v in oa["state"][i].items()
+            if not torch.equal(v.cpu(), ob["state"][i][k].cpu())]
+    if oa["param_groups"] != ob["param_groups"]:
+        bad.append("optimizer.param_groups")
+    if a.step != b.step:
+        bad.append("step")
+    if not torch.equal(a.generator.get_state(), b.generator.get_state()):
+        bad.append("generator")
+    if (a.grad_acc is None) != (b.grad_acc is None):
+        bad.append("grad_acc")
+    return bad
+
+
+def loader_rate(ds, *, workers, batch_size, seed):
+    """clips/s of ``PrefetchLoader.epoch`` alone (no step) over 3 batches a
+    worker (at least 4)."""
+    from vqwild_tpu_torch.data.triplets import PrefetchLoader
+
+    n = max(4, 3 * workers)
+    loader = PrefetchLoader(ds, batch_size=batch_size, steps_per_epoch=n, workers=workers,
+                            seed=seed)
+    t0 = time.perf_counter()
+    clips = sum(b.labels.shape[0] for b in loader.epoch(0))
+    return {"workers": loader.workers, "batches": n, "clips_per_s": clips /
+            (time.perf_counter() - t0)}
+
+
+def phase_loop(dev, workdir, *, nclass, triplets, frames, crop, epochs, steps, print_freq,
+               workers, val_labels, val_per_label, val_noise, clips, loader_workers,
+               feat_dim=512, rank_chunk=256):
+    """The training loop (train/loop.py) from the host loader at full width,
+    with the launch counters zeroed just before and read just after: a
+    seeded DB of ``nclass`` training classes over the synthetic store;
+    TrainLoop → PrefetchLoader (``workers``, capped at the host's cores) →
+    make_train_step, va, Adam lr 1e-4 wd 1e-5, fp32 with TF32 off,
+    ``epochs`` epochs of ``steps`` steps, validation every epoch through
+    ARVRetrievalTrimmed over make_feat_fn(rgb) of the state's model (K1 once
+    a chunk), checkpoints to disk. Then the loader alone by workers on both
+    wires; a resume from ``last`` (bit-equal state, start epoch ``epochs``)
+    and one more epoch under torch.profiler (the synchronising calls); a
+    NaN parameter that halts the loop at the next print; and a yuv420 run
+    of 1 epoch of 2 steps with a yuv420 validation (K2 once an embed
+    batch). Returns the launches and the shape K1 ran at in validation."""
+    import torch
+
+    from vqwild_tpu_torch.core.config import ModelConfig
+    from vqwild_tpu_torch.data.frames import SyntheticFrameStore
+    from vqwild_tpu_torch.data.labels import get_split
+    from vqwild_tpu_torch.data.schema import load_trimmed_db
+    from vqwild_tpu_torch.data.triplets import PrefetchLoader, TripletDataset
+    from vqwild_tpu_torch.models.arv import build_model
+    from vqwild_tpu_torch.ops import distance, stem_pool
+    from vqwild_tpu_torch.retrieval import ARVRetrievalTrimmed, FeatureExtractor, make_feat_fn
+    from vqwild_tpu_torch.train import (
+        CheckpointManager, NonFiniteLossError, TrainLoop, create_train_state, make_optimizer,
+        make_train_step, restore_train_state,
+    )
+
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    spec_path = write_train_db(workdir, nclass=nclass, novel=40, per_class=6,
+                               val_labels=val_labels, val_per_label=val_per_label,
+                               val_noise=val_noise, seed=17)
+    cfg = ModelConfig(method="va", nclass=nclass)
+    distance.launches.reset()
+    stem_pool.launches.reset()
+    # ---- the loop path, from here to the counter read at the end ----
+    spec = get_split(spec_path)
+    db = load_trimmed_db(spec.db_json)
+    store = SyntheticFrameStore()
+    n_val = len(db.flat("validation"))
+    eval_s, evaluators = [], []
+
+    def make_eval(wire):
+        def eval_fn(st, epoch):
+            t0 = time.perf_counter()
+            ex = FeatureExtractor(make_feat_fn(st.model, wire=wire, dtype=torch.float32,
+                                               bn_eps=cfg.bn_eps, device=dev),
+                                  store, test_frames=frames, test_batch_size=clips,
+                                  input_size=crop, wire=wire)
+            ev = ARVRetrievalTrimmed(db, spec, ex, eval_split="validation",
+                                     rank_chunk=rank_chunk, device=dev)
+            out = ev.evaluation()
+            eval_s.append(time.perf_counter() - t0)
+            evaluators.append(ev)
+            return out
+        return eval_fn
+
+    def new_state(seed):
+        model = build_model(cfg, device=dev, seed=seed)
+        tx = make_optimizer(init_lr=1e-4, weight_decay=1e-5, steps_per_epoch=steps,
+                            lr_decay_epoch=9)
+        return create_train_state(model, tx, seed=seed + 1)
+
+    def dataset(wire):
+        return TripletDataset(db, spec, store, novel_num=5, train_frames=frames,
+                              crop_size=crop, nclass=nclass, wire=wire)
+
+    class Saves(CheckpointManager):
+        """Records when each save starts: ``last`` follows the epoch's
+        final loss readback."""
+
+        def __init__(self, directory):
+            super().__init__(directory)
+            self.at = []
+
+        def save(self, name, payload):
+            self.at.append((name, payload["epoch"], time.perf_counter()))
+            super().save(name, payload)
+
+    # (a) the main run
+    ds = dataset("rgb")
+    loader = TimedLoader(PrefetchLoader(ds, batch_size=triplets, steps_per_epoch=steps,
+                                        workers=workers, seed=0))
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    state = new_state(0)
+    step = make_train_step(state.model, state.tx)
+    ends = {}  # epoch -> [(host time, event)] after each step
+
+    def timed_step(st, *arrays):
+        st, losses = step(st, *arrays)
+        ev = torch.cuda.Event(enable_timing=True) if cuda else None
+        if cuda:
+            ev.record()
+        ends.setdefault(loader.current, []).append((time.perf_counter(), ev))
+        return st, losses
+
+    ckpt = Saves(os.path.join(workdir, "loop_ckpt"))
+    t0 = time.perf_counter()
+    loop = TrainLoop(timed_step, loader, epochs=epochs, eval_fn=make_eval("rgb"),
+                     eval_per_epoch=1, ckpt=ckpt, print_freq=print_freq)
+    result = loop.run(state)
+    if cuda:
+        torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    warm = epochs - 1
+    if cuda:
+        step_ms = [a[1].elapsed_time(b[1]) for a, b in zip(ends[warm], ends[warm][1:])]
+    else:
+        step_ms = [1e3 * (b[0] - a[0]) for a, b in zip(ends[warm], ends[warm][1:])]
+    last_at = next(t for name, e, t in ckpt.at if name == "last" and e == warm)
+    epoch_wall = last_at - loader.started[warm]
+    history = result.history
+    n_clips = 3 * triplets
+
+    # (b) the loader alone, by workers, on both wires
+    eff = PrefetchLoader(ds, batch_size=triplets, workers=workers).workers
+    rates = {}
+    for wire, d in (("rgb", ds), ("yuv420", dataset("yuv420"))):
+        rates[wire] = [loader_rate(d, workers=w, batch_size=triplets, seed=100 + w)
+                       for w in sorted(set(loader_workers) | {eff})]
+
+    # (c) resume from ``last`` into a state built anew; one more epoch,
+    # profiled for the host's waits on the card
+    payload = ckpt.restore("last", map_location="cpu")
+    resumed = new_state(7)
+    start = restore_train_state(resumed, payload)
+    differ = states_equal(resumed, state)
+    del payload
+    resume_loop = TrainLoop(make_train_step(resumed.model, resumed.tx), loader.inner,
+                            epochs=epochs + 1, start_epoch=start, print_freq=print_freq)
+    drains = (steps - 1) // print_freq + 1
+    if cuda:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            warmup = torch.zeros(1, device=dev)
+            for _ in range(16):
+                warmup.add_(1.0)
+            resume_result = resume_loop.run(resumed)
+        calls = {e.key: e.count for e in prof.key_averages()
+                 if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                              "cudaMemcpyAsync", "cudaLaunchKernel", "cudaEventSynchronize")}
+    else:
+        resume_result = resume_loop.run(resumed)
+        calls = "not traced (CPU)"
+
+    # (d) a NaN parameter halts the loop at the next print
+    with torch.no_grad():
+        resumed.model.conv1.weight.view(-1)[0] = float("nan")
+    nan_loop = TrainLoop(make_train_step(resumed.model, resumed.tx), loader.inner,
+                         epochs=epochs + 2, start_epoch=epochs + 1, print_freq=2,
+                         max_steps_per_epoch=3)
+    try:
+        nan_loop.run(resumed)
+        halted = None
+    except NonFiniteLossError as e:
+        halted = str(e)
+    del resumed, resume_loop, nan_loop
+
+    # (e) a short yuv420 run with a yuv420 validation
+    before_yuv = {"sq_l2": distance.launches.n, "stem_s2d_pool": stem_pool.launches.n}
+    ystate = new_state(20)
+    yloop = TrainLoop(make_train_step(ystate.model, ystate.tx, wire="yuv420"),
+                      PrefetchLoader(dataset("yuv420"), batch_size=triplets, steps_per_epoch=2,
+                                     workers=workers, seed=3),
+                      epochs=1, eval_fn=make_eval("yuv420"), eval_per_epoch=1,
+                      ckpt=CheckpointManager(os.path.join(workdir, "loop_yuv_ckpt")),
+                      print_freq=print_freq)
+    yresult = yloop.run(ystate)
+    if cuda:
+        torch.cuda.synchronize()
+    launches = {"sq_l2": distance.launches.n, "stem_s2d_pool": stem_pool.launches.n}
+    # ---- end of the loop path ----
+    yuv_launches = {k: v - before_yuv[k] for k, v in launches.items()}
+    n_batches = -(-n_val // clips)
+    # the K1 shape of each validation, as phase_eval counts its queries
+    val_queries = {sum(1 for r in ev.records if r.is_query == 1 and r.retrieval_type != "noise")
+                   for ev in evaluators}
+    val_rows = {len(ev.records) for ev in evaluators}
+    if len(val_queries) != 1 or len(val_rows) != 1:
+        raise AssertionError(f"loop: validations differ: {val_queries} queries, {val_rows} rows")
+    val_q, val_g = val_queries.pop(), val_rows.pop()
+    k1_chunk = (min(rank_chunk, val_q), val_g, feat_dim)
+    val_chunks = -(-val_q // rank_chunk)
+    med = float(np.median(step_ms))
+    row = {"phase": "loop", "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
+           "method": "va", "dtype": "float32", "wire": "rgb", "nclass": nclass,
+           "clips_per_step": n_clips, "frames": frames, "crop": crop, "epochs": epochs,
+           "steps_per_epoch": steps, "print_freq": print_freq,
+           "reduced": {"validation_records": n_val,
+                       "why": "the validation split cut to a few hundred records: its "
+                              "extraction is host-bound"},
+           "ms_per_step_median": med, "ms_per_step_min": min(step_ms),
+           "ms_per_step_max": max(step_ms),
+           "ms_per_step_from": "CUDA events after each step of the last epoch, "
+                               "step end to step end" if cuda else "host clock (CPU)",
+           "clips_per_s": n_clips * len(step_ms) / (sum(step_ms) / 1e3),
+           "epoch_wall_s": epoch_wall,
+           "epoch_clips_per_s": n_clips * steps / epoch_wall,
+           "data_time_share": sum(loader.waits[warm]) / epoch_wall,
+           "data_time_s": sum(loader.waits[warm]),
+           "first_batch_wait_s": loader.waits[warm][0],
+           "peak_memory_gb": peak, "host_cpu_count": os.cpu_count(),
+           "workers_asked": workers, "workers_effective": loader.inner.workers,
+           "pinned_side_stream_upload": loop._copy_stream is not None,
+           "history": history, "best_score": result.best_score,
+           "best_epoch": result.best_epoch, "validation_s": eval_s, "main_run_s": main_s,
+           "best_and_last_exist": ckpt.exists("best") and ckpt.exists("last"),
+           "loader_alone_clips_per_s": rates,
+           "resume": {"start_epoch": start, "tensors_not_bit_equal": differ,
+                      "history": resume_result.history},
+           "resume_epoch_runtime_calls": calls, "resume_epoch_loss_readbacks": drains,
+           "nan_halt": halted,
+           "yuv420": {"history": yresult.history, "launches": yuv_launches,
+                      "embed_batches_per_validation": n_batches},
+           "validations": len(evaluators), "validation_queries": val_q,
+           "validation_chunks": val_chunks, "k1_chunk": list(k1_chunk),
+           "phase_s": time.perf_counter() - t_phase, "launches": launches}
+    emit(row)
+    bad = []
+    for h in history + resume_result.history + yresult.history:
+        if not all(np.isfinite(v) for v in h["losses"].values()):
+            bad.append(f"epoch {h['epoch']}: a loss is not finite: {h['losses']}")
+    for h in history + yresult.history:
+        if not 0.0 <= h.get("ap", -1.0) <= 1.0:
+            bad.append(f"epoch {h['epoch']}: ap {h.get('ap')} outside [0, 1]")
+    if [h["steps"] for h in history] != [steps] * epochs:
+        bad.append(f"steps by epoch {[h['steps'] for h in history]}")
+    if not row["best_and_last_exist"]:
+        bad.append("best or last was not written")
+    if start != epochs or differ:
+        bad.append(f"resume: start epoch {start}, tensors that differ {differ}")
+    if halted is None or "non-finite loss" not in halted:
+        bad.append(f"the NaN parameter did not halt the loop: {halted}")
+    if cuda:
+        if launches["sq_l2"] < 1 or launches["stem_s2d_pool"] < 1:
+            bad.append(f"a kernel of the loop path never launched: {launches}")
+        if launches["sq_l2"] != len(evaluators) * val_chunks:
+            bad.append(f"K1 {launches['sq_l2']} launches for {len(evaluators)} validations "
+                       f"of {val_chunks} chunks")
+        if yuv_launches["stem_s2d_pool"] < n_batches:
+            bad.append(f"yuv420 validation: K2 {yuv_launches} for {n_batches} batches")
+        if not row["pinned_side_stream_upload"]:
+            bad.append("the loop did not upload through its side stream")
+        if not (calls.get("cudaLaunchKernel", 0) > 0
+                and calls.get("cudaStreamSynchronize", 0) <= drains):
+            bad.append(f"resume epoch: runtime calls {calls}, {drains} loss readbacks")
+    if bad:
+        raise AssertionError("loop: " + "; ".join(bad))
+    del state, ystate, loop, yloop
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"launches": launches, "k1_chunk": k1_chunk}
+
+
 def main() -> int:
     import torch
 
@@ -1947,6 +2352,12 @@ def main() -> int:
     train_vs_cpu(dev, steps=3, batch=6, frames=2, crop=32)
     profile_train(dev, triplets=TRAIN_TRIPLETS, frames=FRAMES, crop=CROP)
     with tempfile.TemporaryDirectory() as workdir:
+        loop = phase_loop(dev, workdir, nclass=TRAIN_NCLASS, triplets=TRAIN_TRIPLETS,
+                          frames=FRAMES, crop=CROP, epochs=LOOP_EPOCHS, steps=LOOP_STEPS,
+                          print_freq=LOOP_PRINT_FREQ, workers=LOOP_WORKERS,
+                          val_labels=LOOP_VAL_LABELS, val_per_label=LOOP_VAL_PER_LABEL,
+                          val_noise=LOOP_VAL_NOISE, clips=CLIPS,
+                          loader_workers=LOOP_LOADER_WORKERS)
         serve = phase_serve(dev, workdir, batches=EMBED_BATCHES, clips=CLIPS, frames=FRAMES,
                             crop=CROP, gallery_rows=GALLERY_ROWS, ref_clips=2, ref_frames=4,
                             n_feature_q=32, n_clip_q=8)
@@ -1967,15 +2378,20 @@ def main() -> int:
     if moment["windows"] != K1_MOMENT_CHUNK[1] or K1_MOMENT_DEVICE_CHUNK[1] != K1_MOMENT_CHUNK[1]:
         raise AssertionError(f"the moment gallery has {moment['windows']} windows; K1 was timed "
                              f"at {K1_MOMENT_CHUNK} and {K1_MOMENT_DEVICE_CHUNK}")
+    if loop["k1_chunk"] != K1_LOOP_CHUNK:
+        raise AssertionError(f"the loop's validation ran K1 at {loop['k1_chunk']}; K1 was timed "
+                             f"at {K1_LOOP_CHUNK}")
 
     k1_main = k1[0]  # (16, 7670, 512): the smoke's gallery at a full query bucket
     k1_eval = next(r for r in k1 if tuple(r["shape"]) == K1_EVAL_CHUNK)
     k1_clip = next(r for r in k1 if tuple(r["shape"]) == K1_CLIP_CHUNK)
     k1_moment = next(r for r in k1 if tuple(r["shape"]) == K1_MOMENT_CHUNK)
     k1_moment_device = next(r for r in k1 if tuple(r["shape"]) == K1_MOMENT_DEVICE_CHUNK)
+    k1_loop = next(r for r in k1 if tuple(r["shape"]) == K1_LOOP_CHUNK)
     k2_main = k2[0]  # an embed batch in fp32, the serving dtype
     paths = {"serve": serve["launches"], "eval": evald["launches"], "clip": clip["launches"],
-             "moment": moment["launches"], "train": train["launches"]}
+             "moment": moment["launches"], "train": train["launches"],
+             "loop": loop["launches"]}
     launches = {k: sum(p[k] for p in paths.values()) for k in serve["launches"]}
     chunk_keys = ("shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
@@ -1990,7 +2406,8 @@ def main() -> int:
          "eval_chunk": {k: k1_eval[k] for k in chunk_keys},
          "clip_chunk": {k: k1_clip[k] for k in chunk_keys},
          "moment_chunk": {k: k1_moment[k] for k in chunk_keys},
-         "moment_device_chunk": {k: k1_moment_device[k] for k in chunk_keys}},
+         "moment_device_chunk": {k: k1_moment_device[k] for k in chunk_keys},
+         "loop_chunk": {k: k1_loop[k] for k in chunk_keys}},
         {"name": "stem_s2d_pool", "route": "cuda", "source": "vqwild_tpu_torch/csrc/stem_pool.cu",
          "replaces": "vqwild_tpu/ops/pallas_kernels.py:152",
          "launches": launches["stem_s2d_pool"],

@@ -290,6 +290,31 @@ class TestServerEntryPoint:
             thread.join(timeout=30)
         assert not thread.is_alive()
 
+    def test_random_trunk_is_seeded(self, monkeypatch):
+        """With no --test_load the trunk is drawn from manual_seed in a forked
+        generator: two builds embed alike, torch's global generator is left
+        as it was, and no CUDA generator is reseeded."""
+        from vqwild_tpu_torch.core.logging import get_logger
+        from vqwild_tpu_torch.serve.__main__ import _build_embed_fn
+
+        args = SimpleNamespace(test_load="", meta_split="100_20_80", data_root="data",
+                               frames_dir="", input_size=32, test_frame=2, test_batch_size=4,
+                               frame_store="synthetic", method="baseline",
+                               eval_split="testing")
+        rng = np.random.default_rng(8)
+        y, uv = rgb_to_yuv420_host(rng.integers(0, 256, (2, 2, 32, 32, 3), dtype=np.uint8))
+        rng_state = torch.random.get_rng_state()
+        cuda_seeds = []
+        monkeypatch.setattr(torch.cuda, "manual_seed_all", cuda_seeds.append)
+        monkeypatch.setattr(torch.cuda, "manual_seed", cuda_seeds.append)
+        log = get_logger("test")
+        a = _build_embed_fn(args, torch.device("cpu"), torch.float32, log)(y, uv)
+        b = _build_embed_fn(args, torch.device("cpu"), torch.float32, log)(y, uv)
+        assert torch.equal(torch.random.get_rng_state(), rng_state)
+        assert cuda_seeds == []
+        assert a.shape == (2, 512, 2) and np.isfinite(a).all()
+        np.testing.assert_array_equal(a, b)
+
     def test_missing_index_raises(self, tmp_path):
         """No index on disk and nothing to build one with."""
         with pytest.raises(SystemExit, match="--no_embed requires an existing"):
@@ -397,13 +422,15 @@ class TestPortRules:
         # every module of the port: the serving slice's 21, the data,
         # ranking and trimmed-evaluator modules, the clip regime's and the
         # moment regime's (with the native engine's bindings and the device
-        # engine), the heads, the full model and the train step
-        assert len(files) >= 54
+        # engine), the heads, the full model and the train step, the triplet
+        # loader, the loop, its checkpoints and the summaries
+        assert len(files) >= 58
         assert {"data/frames.py", "ops/ranking.py", "retrieval/trimmed.py", "apps/cli.py",
                 "data/longvideo.py", "ops/segment_pool.py", "retrieval/clip.py",
                 "core/hostsig.py", "native/__init__.py", "native/lib.py", "ops/nms.py",
                 "retrieval/moment.py", "retrieval/moment_device.py", "models/heads.py",
-                "models/arv.py", "train/__init__.py", "train/step.py"} <= {
+                "models/arv.py", "train/__init__.py", "train/step.py", "data/triplets.py",
+                "train/loop.py", "train/checkpoint.py", "core/summaries.py"} <= {
             str(f.relative_to(REPO / "vqwild_tpu_torch")) for f in files[:-1]}
         bad = []
         for f in files:

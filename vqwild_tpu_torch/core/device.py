@@ -3,7 +3,8 @@ asks for the CPU, and never falls back from one to the other."""
 
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+from typing import Iterator, Union
 
 import torch
 
@@ -28,3 +29,14 @@ def disable_tf32() -> None:
     HIGHEST precision."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def cpu_seeded(seed: int) -> Iterator[None]:
+    """Draws made inside come from the CPU generator seeded with ``seed``.
+    The generator is forked, so torch's global CPU generator is left as it
+    was, and no CUDA generator is touched (``torch.manual_seed`` would
+    reseed them all)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.default_generator.manual_seed(seed)
+        yield

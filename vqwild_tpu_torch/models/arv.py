@@ -27,7 +27,7 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
-from vqwild_tpu_torch.core.device import resolve_device
+from vqwild_tpu_torch.core.device import cpu_seeded, resolve_device
 from vqwild_tpu_torch.models import heads
 from vqwild_tpu_torch.models.resnet_f2f import BN_EPS, BN_MOMENTUM, ResNet18F2F
 
@@ -123,10 +123,8 @@ class ARVModel(ResNet18F2F):
 
 
 def _seeded(hparams: dict, seed: int) -> ARVModel:
-    """An ``ARVModel`` built on the CPU in a forked RNG seeded with ``seed``
-    (the global generator is left as it was)."""
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
+    """An ``ARVModel`` built on the CPU from ``seed`` (``cpu_seeded``)."""
+    with cpu_seeded(seed):
         return ARVModel(**hparams)
 
 

@@ -298,7 +298,11 @@ def make_folded_trunk(state_dict: Mapping[str, Any], *, dtype=torch.float32,
         sizes.append(sum(1 for n in folded if n.startswith(f"layer{li}_")))
         planes.append(folded[f"layer{li}_0"]["conv1"]["bias"].shape[0])
         li += 1
-    model = ResNet18F2FInfer(sizes, planes, stem_mode).load_folded(folded)
+    # the modules' init draws are overwritten by the folded weights: draw
+    # them in a forked generator, so that building leaves torch's global one
+    # as it was
+    with torch.random.fork_rng(devices=[]):
+        model = ResNet18F2FInfer(sizes, planes, stem_mode).load_folded(folded)
     return model.to(device=dev, dtype=dtype, memory_format=torch.channels_last).eval()
 
 

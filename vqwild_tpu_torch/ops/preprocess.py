@@ -16,9 +16,17 @@ import torch
 from vqwild_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 
 
+def _channel_constant(values: np.ndarray, device) -> torch.Tensor:
+    """fp32 ``values`` as a tensor on ``device``, made by fill kernels: a
+    copy from pageable host memory would make the host wait for the card
+    (twice a train step, for the mean and the inverse std)."""
+    return torch.stack([torch.full((), float(v), dtype=torch.float32, device=device)
+                        for v in np.asarray(values, np.float32)])
+
+
 def _normalize01(x: torch.Tensor, out_dtype) -> torch.Tensor:
-    mean = torch.as_tensor(IMAGENET_MEAN, device=x.device)
-    inv_std = torch.as_tensor(1.0 / IMAGENET_STD, device=x.device)
+    mean = _channel_constant(IMAGENET_MEAN, x.device)
+    inv_std = _channel_constant(1.0 / IMAGENET_STD, x.device)
     return ((x - mean) * inv_std).to(out_dtype)
 
 

@@ -201,10 +201,12 @@ def _build_index(args, embed_fn, device):
 
 def _build_embed_fn(args, device, dtype, log):
     """The serving trunk with the feat_fn contract: f(y, uv) → [B, C, T]."""
+    from vqwild_tpu_torch.core.device import cpu_seeded
     from vqwild_tpu_torch.models.convert import load_reference_checkpoint
     from vqwild_tpu_torch.models.resnet_f2f import ResNet18F2F
     from vqwild_tpu_torch.retrieval.features import make_feat_fn
 
+    cfg = _cfg(args)
     if args.test_load:
         trunk = load_reference_checkpoint(args.test_load, device=device)
     else:
@@ -212,8 +214,12 @@ def _build_embed_fn(args, device, dtype, log):
             "no --test_load given: using RANDOMLY INITIALIZED weights "
             "(fine for smoke tests, meaningless for real retrieval)"
         )
-        trunk = ResNet18F2F().eval()
-    return make_feat_fn(trunk, wire="yuv420", dtype=dtype, bn_eps=_cfg(args).model.bn_eps,
+        # drawn from manual_seed, as the JAX server's init is, so that an
+        # index built without a checkpoint matches a later server's clip
+        # queries; torch's global generators are left as they were
+        with cpu_seeded(cfg.train.manual_seed):
+            trunk = ResNet18F2F().eval()
+    return make_feat_fn(trunk, wire="yuv420", dtype=dtype, bn_eps=cfg.model.bn_eps,
                         device=device)
 
 

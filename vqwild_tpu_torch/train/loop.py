@@ -1,0 +1,272 @@
+"""The training loop (reference main.py:533-620).
+
+Counterpart of vqwild_tpu/train/loop.py. Epoch loop with periodic
+trimmed-retrieval validation, best-checkpoint tracking on the 2-order
+harmonic mAP, and step-level loss/throughput logging. The loop is
+deliberately thin: data comes from a PrefetchLoader, compute from
+make_train_step, evaluation from a caller-supplied callback — so tests can
+drive it end-to-end on synthetic data.
+
+On a CUDA device each batch goes up through pinned host memory on a side
+stream while the step before it runs, and the losses are read back once a
+print, never once a step: between prints the host never waits on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from vqwild_tpu_torch.core.logging import get_logger
+from vqwild_tpu_torch.core.meters import AverageMeter, Timer
+from vqwild_tpu_torch.train.checkpoint import CheckpointManager, last_payload
+from vqwild_tpu_torch.train.step import TrainState
+
+log = get_logger("train.loop")
+
+
+@dataclasses.dataclass
+class LoopResult:
+    state: TrainState
+    best_score: float
+    best_epoch: int
+    history: list
+
+
+class NonFiniteLossError(RuntimeError):
+    """Training diverged: a loss became NaN/Inf (train failure detection).
+
+    The reference has no failure detection (SURVEY §5) — a NaN quietly burns
+    the remaining epochs and poisons the checkpoints. Here the loop halts at
+    the next loss sync; the previous epoch's ``last`` checkpoint (saved
+    before the divergence finished an epoch) is the resume point.
+    """
+
+
+class TrainLoop:
+    def __init__(
+        self,
+        step_fn: Callable,
+        loader,
+        epochs: int,
+        eval_fn: Optional[Callable] = None,  # (state, epoch) -> score dict
+        eval_per_epoch: int = 2,
+        ckpt: Optional[CheckpointManager] = None,
+        print_freq: int = 100,
+        max_steps_per_epoch: Optional[int] = None,
+        start_epoch: int = 0,
+        scan_fn: Optional[Callable] = None,
+        scan_steps: int = 1,
+        nonfinite_policy: str = "halt",
+    ):
+        """``scan_fn`` + ``scan_steps`` > 1 run groups of ``scan_steps``
+        batches, stacked on the host, through one call of
+        train/step.py:make_scanned_train_step. Leftover batches
+        (< scan_steps at epoch end) go through ``step_fn`` one at a time —
+        zero-weight padding would still advance the optimizer (weight
+        decay, bias correction), so it is never used to fill a group.
+
+        ``nonfinite_policy``: what to do when a synced loss is NaN/Inf —
+        "halt" (default) raises NonFiniteLossError at the next loss sync
+        (losses sync every print_freq steps, so detection lags at most that
+        many steps — by design, a per-step readback would make the host
+        wait on the device every step); "warn" logs and keeps going."""
+        if nonfinite_policy not in ("halt", "warn"):
+            raise ValueError(f"unknown nonfinite_policy {nonfinite_policy!r}")
+        self.step_fn = step_fn
+        self.loader = loader
+        self.epochs = epochs
+        self.eval_fn = eval_fn
+        self.eval_per_epoch = eval_per_epoch
+        self.ckpt = ckpt
+        self.print_freq = print_freq
+        self.max_steps = max_steps_per_epoch
+        self.start_epoch = start_epoch
+        self.scan_fn = scan_fn
+        self.scan_steps = scan_steps if scan_fn is not None else 1
+        self.nonfinite_policy = nonfinite_policy
+        self._dev = torch.device("cpu")
+        self._copy_stream = None
+
+    def _upload(self, arrays) -> tuple:
+        """Host arrays → tensors on the state's device. On a CUDA device each
+        array is copied into pinned memory and uploaded on a side stream; the
+        compute stream waits for that copy from here on (work already queued
+        on it does not), and each tensor is marked as used by the compute
+        stream, so that its memory is not reused while a step still reads it."""
+        tensors = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
+        if self._dev.type == "cpu":
+            return tensors
+        if self._dev.type != "cuda":
+            raise ValueError(f"TrainLoop runs on cpu or cuda, not {self._dev}")
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self._dev)
+        compute = torch.cuda.current_stream(self._dev)
+        with torch.cuda.stream(self._copy_stream):
+            out = tuple(t.pin_memory().to(self._dev, non_blocking=True) for t in tensors)
+        compute.wait_stream(self._copy_stream)
+        for t in out:
+            t.record_stream(compute)
+        return out
+
+    def _put(self, batch):
+        """→ (wire tensors..., labels, weights-or-None) on the state's
+        device. Without a mesh there is no padding, so no weights."""
+        return self._upload(batch.arrays + (batch.labels,)) + (None,)
+
+    def _put_group(self, group):
+        """Stack ``len(group)`` loader batches along a leading scan axis →
+        (arrays [K,B,...], labels [K,B], weights-or-None)."""
+        stacked = [
+            np.stack([b.arrays[j] for b in group])
+            for j in range(len(group[0].arrays))
+        ]
+        labels = np.stack([b.labels for b in group])
+        return self._upload(tuple(stacked) + (labels,)) + (None,)
+
+    def run(self, state: TrainState) -> LoopResult:
+        self._dev = next(state.model.parameters()).device
+        best_score, best_epoch = -1.0, -1
+        history = []
+        for epoch in range(self.start_epoch, self.epochs):
+            timer = Timer()
+            data_time = AverageMeter()
+            loss_meters: Dict[str, AverageMeter] = {}
+            nsteps = 0
+
+            def capped():
+                for i, b in enumerate(self.loader.epoch(epoch)):
+                    if self.max_steps is not None and i >= self.max_steps:
+                        return
+                    yield b
+
+            def drain(pending):
+                """Every pending loss in one device-to-host copy, into the
+                meters in step order; then the non-finite check."""
+                if not pending:
+                    return
+                flat = [(k, torch.as_tensor(v, dtype=torch.float64).reshape(-1))
+                        for entry in pending for k, v in entry.items()]
+                host = torch.cat([v for _, v in flat]).cpu().numpy()
+                pending.clear()
+                bad = None
+                at = 0
+                for k, v in flat:
+                    for x in host[at:at + v.numel()]:
+                        if not np.isfinite(x) and bad is None:
+                            bad = (k, float(x))
+                        loss_meters.setdefault(k, AverageMeter()).update(float(x))
+                    at += v.numel()
+                if bad is not None:
+                    msg = (
+                        f"non-finite loss {bad[0]}={bad[1]} detected by epoch "
+                        f"{epoch} step {nsteps} (sync granularity "
+                        f"print_freq={self.print_freq}); resume from the "
+                        f"'last' checkpoint of the previous epoch"
+                    )
+                    if self.nonfinite_policy == "halt":
+                        log.error(msg)
+                        raise NonFiniteLossError(msg)
+                    log.warning(msg)
+
+            pending = []  # the steps' loss tensors, read back only at print time
+
+            def progress_log(step_idx):
+                drain(pending)
+                log.info(
+                    "[%d][%d] %s dataload=%.3fs best=%.3f",
+                    epoch,
+                    step_idx,
+                    " ".join(
+                        f"{k}={m.avg:.4f}" for k, m in sorted(loss_meters.items())
+                    ),
+                    data_time.avg,
+                    best_score,
+                )
+
+            def call(fn, arrays):
+                *arrs, weights = arrays
+                if weights is None:
+                    return fn(state, *arrs)
+                return fn(state, *arrs, weights=weights)
+
+            next_print = self.print_freq
+            if self.scan_steps > 1:
+                it = iter(capped())
+                while True:
+                    group = list(itertools.islice(it, self.scan_steps))
+                    if not group:
+                        break
+                    data_time.update(timer.tick())
+                    if len(group) == self.scan_steps:
+                        state, losses = call(self.scan_fn, self._put_group(group))
+                        nsteps += len(group)
+                        pending.append(losses)
+                    else:  # epoch tail < scan window → per-step fn
+                        for b in group:
+                            state, losses = call(self.step_fn, self._put(b))
+                            nsteps += 1
+                            pending.append(losses)
+                    timer.tick()
+                    if nsteps >= next_print:
+                        next_print += self.print_freq
+                        progress_log(nsteps)
+            else:
+                # one-batch lookahead: batch k+1 goes up while step k runs
+                def batches():
+                    it = iter(capped())
+                    nxt = next(it, None)
+                    while nxt is not None:
+                        cur = self._put(nxt)
+                        nxt = next(it, None)
+                        yield cur
+
+                for i, arrays in enumerate(batches()):
+                    data_time.update(timer.tick())
+                    state, losses = call(self.step_fn, arrays)
+                    nsteps += 1
+                    pending.append(losses)
+                    timer.tick()
+                    if i % self.print_freq == 0 and i > 0:
+                        progress_log(i)
+            drain(pending)
+            log.info(
+                "epoch %d done: %d steps, %s",
+                epoch,
+                nsteps,
+                " ".join(f"{k}={m.avg:.4f}" for k, m in sorted(loss_meters.items())),
+            )
+            entry = dict(
+                epoch=epoch,
+                steps=nsteps,
+                losses={k: m.avg for k, m in sorted(loss_meters.items())},
+            )
+            history.append(entry)
+
+            if self.ckpt is not None:
+                # the full training state, for a resume mid-training (the
+                # reference saves best only, SURVEY §5)
+                self.ckpt.save("last", last_payload(state, epoch))
+
+            is_eval_epoch = (
+                self.eval_fn is not None and (epoch + 1) % self.eval_per_epoch == 0
+            )
+            if is_eval_epoch:
+                score = self.eval_fn(state, epoch)
+                ap = float(score.get("ap", 0.0))
+                entry["ap"] = ap
+                log.warning("epoch %d validation ap=%.4f (best %.4f)", epoch, ap, best_score)
+                if ap > best_score:
+                    best_score, best_epoch = ap, epoch
+                    if self.ckpt is not None:
+                        self.ckpt.save(
+                            "best",
+                            dict(model=state.model.state_dict(), epoch=epoch, score=ap),
+                        )
+        return LoopResult(
+            state=state, best_score=best_score, best_epoch=best_epoch, history=history
+        )
