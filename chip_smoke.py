@@ -12,8 +12,9 @@ Phases, each printing one JSON line:
                 (a full bucket of 16 queries and a single one), at a rank
                 chunk of the trimmed (256 queries), clip (256) and moment
                 (128) evaluators, of the moment device engine (32 against
-                1,466,542 rows) and of the training loop's validation (60
-                against 180), and at two ragged ones:
+                1,466,542 rows), of the training loop's validation (60
+                against 180) and of the command line's trimmed evaluation
+                (80 against 240), and at two ragged ones:
                 rtol 1e-5 / atol 1e-3 on N(0,1) data, and
                 top-30 rows identical on a gallery with planted,
                 well-separated neighbours (tie-free by construction). Each
@@ -27,7 +28,9 @@ Phases, each printing one JSON line:
                 under the bytes bound.
   (e) serve   — the serving path: seeded full-width trunk weights saved as
                 a best.pth.tar; 16 embed batches of 30 yuv420 clips
-                (32x112x112) through make_feat_fn; a 7,670-row index;
+                (32x112x112) through the trunk the server builds from it
+                (serve.__main__._build_embed_fn, as every later phase
+                builds its trunk); a 7,670-row index;
                 the port's server (serve.__main__.main) on port 0 answering
                 concurrent /query/features and /query/clip requests
                 (p50 latency, sequential and concurrent). The launch
@@ -164,8 +167,31 @@ Phases, each printing one JSON line:
                 loss readback); a NaN parameter that halts the loop at the
                 next print; a yuv420 run of 1 epoch of 2 steps with a yuv420
                 validation (K2 once an embed batch).
-  (k) kernels — one {"kernels": [...]} line; ``launches`` counts the serve,
-                eval, clip, moment, train and loop phases together.
+  (k) cli     — the command line (apps/cli.main, what ``python -m
+                vqwild_tpu_torch`` runs) in this process, right after loop,
+                with the launch counters zeroed just before and read just
+                after: train va on the yuv420 wire at full width (10
+                triplets, 30-clip embed batches, 8 workers, fp32 with TF32
+                off) under --debug (2 epochs of 2 steps, at most 8 embed
+                batches an extraction; printed as ``reduced``) over the loop
+                phase's DB with a 240-record testing split and an untrimmed
+                DB of 60 videos, validating every epoch and ending in the
+                final --eval_all; --export_torch of ``best``, reloaded by
+                ``convert.load_reference_model(strict=True)`` bit-equal to
+                the checkpoint; --evaluate --eval_all from the export (every
+                ap in [0, 1], the moment regime on the device engine); the
+                server's embed function from the ``best`` directory and
+                from the file, equal on one batch. Then, uncounted, the
+                trimmed evaluation of a tenth on the card and with --device
+                cpu within 1e-3. One line "cli": the step ms (CUDA events
+                around each step), the validations' and every evaluator's
+                seconds and timings, the wall seconds of each part, peak
+                device memory; every K1 call of each evaluation, held to
+                what its evaluator's queries ask for, and K1's shape in the
+                validation, trimmed, clip and moment evaluations, which
+                main() holds to the shapes phase k1 timed.
+  (l) kernels — one {"kernels": [...]} line; ``launches`` counts the serve,
+                eval, clip, moment, train, loop and cli phases together.
 
 Then the card's name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -195,8 +221,8 @@ TF32_FLOPS = 495e12  # H100 SXM, TF32 tensor cores, dense
 
 # the smoke's gallery at a full query bucket and at one query (a sequential
 # request), a gallery four times the L2 cache, two ragged shapes, a rank
-# chunk of the trimmed, of the clip and of the moment evaluator, and the
-# training loop's validation
+# chunk of the trimmed, of the clip and of the moment evaluator, the
+# training loop's validation, and the command line's three regimes
 K1_EVAL_CHUNK = (256, 7670, 512)  # one rank chunk of the trimmed evaluator
 K1_CLIP_CHUNK = (256, 100000, 512)  # one rank chunk of the clip evaluator
 # one rank chunk of the moment evaluator over the moment phase's gallery:
@@ -207,8 +233,18 @@ K1_MOMENT_DEVICE_CHUNK = (32, 1466542, 512)
 # the training loop's validation: its 60 queries in one chunk against the 180
 # records of its validation split (phase_loop checks both)
 K1_LOOP_CHUNK = (60, 180, 512)
+# the command line's evaluations of its testing split (phase_cli holds each
+# K1 call to its evaluator's queries and gallery): trimmed, its 80 queries in
+# one chunk against its 240 records; clip, the untrimmed DB's 40 queries in
+# one chunk against the 3 windows of 6 s of each of its 60 videos; moment,
+# the device engine's 2 chunks of 32 against the 10 windows of 1-4 x 5 s of
+# each video (its validations run at K1_LOOP_CHUNK)
+K1_CLI_CHUNK = (80, 240, 512)
+K1_CLI_CLIP_CHUNK = (40, 180, 512)
+K1_CLI_MOMENT_CHUNK = (32, 600, 512)
 K1_SHAPES = [(16, 7670, 512), (16, 100000, 512), (1, 7670, 512), (5, 130, 512), (300, 1000, 64),
-             K1_EVAL_CHUNK, K1_CLIP_CHUNK, K1_MOMENT_CHUNK, K1_MOMENT_DEVICE_CHUNK, K1_LOOP_CHUNK]
+             K1_EVAL_CHUNK, K1_CLIP_CHUNK, K1_MOMENT_CHUNK, K1_MOMENT_DEVICE_CHUNK, K1_LOOP_CHUNK,
+             K1_CLI_CHUNK, K1_CLI_CLIP_CHUNK, K1_CLI_MOMENT_CHUNK]
 # galleries that cannot sit in L2: their times are held to their bounds
 K1_BEYOND_L2 = ((16, 100000, 512), K1_CLIP_CHUNK, K1_MOMENT_CHUNK, K1_MOMENT_DEVICE_CHUNK)
 # an embed batch (30 clips x 32 frames) in both types, a clip query in fp32
@@ -244,6 +280,14 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 10
 LOOP_EPOCHS, LOOP_STEPS, LOOP_PRINT_FREQ, LOOP_WORKERS = 2, 12, 4, 8
 LOOP_VAL_LABELS, LOOP_VAL_PER_LABEL, LOOP_VAL_NOISE = 30, 5, 30
 LOOP_LOADER_WORKERS = (1, 2, 4)
+# the command line (python -m vqwild_tpu_torch) at the JAX defaults under
+# --debug: the loop phase's training DB, a testing split of 30 base and 10
+# test-novel labels of 5 records (2 queries each) and 40 noise records (240
+# records, 8 embed batches: --debug cuts nothing of it), an untrimmed DB of
+# 60 videos (120 chunks) and 40 queries; a tenth (2 + 2 labels, 4 noise) on
+# the card and on the CPU
+CLI_TEST_BASE, CLI_TEST_NOVEL, CLI_PER_LABEL, CLI_QUERIES_PER_LABEL = 30, 10, 5, 2
+CLI_TEST_NOISE, CLI_TENTH_LABELS, CLI_VIDEOS, CLI_QUERIES = 40, 2, 60, 40
 # card against CPU, 3 va steps at B 6, T 2, 32x32, each card step from the
 # CPU's state: losses 1e-3 (5e-4 is the JAX test's one-step bound), BN
 # running means 1e-4 and variances 1e-2 relative, the memory 1e-4, every
@@ -441,6 +485,20 @@ def trunk_state_dict(seed: int):
     return sd
 
 
+def serving_embed_fn(ckpt, dev, *flags):
+    """The serving trunk in fp32 as ``python -m vqwild_tpu_torch.serve
+    --test_load ckpt [flags]`` builds it (serve/__main__._build_embed_fn:
+    apps/cli.load_variables into the ``--method`` model, then
+    make_feat_fn on the yuv420 wire)."""
+    import torch
+
+    from vqwild_tpu_torch.core.logging import get_logger
+    from vqwild_tpu_torch.serve.__main__ import _build_embed_fn, parse_args
+
+    args = parse_args(["--index_dir", "", "--test_load", ckpt, "--device", str(dev), *flags])
+    return _build_embed_fn(args, torch.device(dev), torch.float32, get_logger("chip_smoke"))
+
+
 def post(url: str, body: bytes):
     t0 = time.perf_counter()
     with urllib.request.urlopen(urllib.request.Request(url, data=body), timeout=120) as r:
@@ -522,9 +580,7 @@ def phase_serve(dev, workdir, *, batches, clips, frames, crop, gallery_rows,
                 ref_clips, ref_frames, n_feature_q, n_clip_q):
     import torch
 
-    from vqwild_tpu_torch.models.convert import load_reference_checkpoint
     from vqwild_tpu_torch.ops import distance, stem_pool
-    from vqwild_tpu_torch.retrieval.features import make_feat_fn
     from vqwild_tpu_torch.serve.__main__ import main as serve_main
     from vqwild_tpu_torch.serve.index import GalleryIndex
 
@@ -541,8 +597,7 @@ def phase_serve(dev, workdir, *, batches, clips, frames, crop, gallery_rows,
     distance.launches.reset()
     stem_pool.launches.reset()
     # ---- the main path, from here to the counter read below ----
-    trunk = load_reference_checkpoint(ckpt, device=dev)
-    feat_fn = make_feat_fn(trunk, wire="yuv420", dtype=torch.float32, device=dev)
+    feat_fn = serving_embed_fn(ckpt, dev)
     feat_fn(ys[0], uvs[0])  # warm-up (cuDNN autotune, allocator)
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -625,8 +680,7 @@ def phase_serve(dev, workdir, *, batches, clips, frames, crop, gallery_rows,
 
     # the card's embeddings against the CPU path (plain K2, CPU convs) on a
     # small input, fp32 both: tolerance 1e-4 as in the CPU tests
-    ref_fn = make_feat_fn(load_reference_checkpoint(ckpt, device="cpu"), wire="yuv420",
-                          dtype=torch.float32, device="cpu")
+    ref_fn = serving_embed_fn(ckpt, "cpu")
     ry, ruv = ys[0, :ref_clips, :ref_frames], uvs[0, :ref_clips, :ref_frames]
     ref_err = float(np.abs(feat_fn(ry, ruv) - ref_fn(ry, ruv)).max())
     if ref_err > 1e-4:
@@ -756,11 +810,8 @@ def phase_eval(dev, workdir, ckpt, *, labels, per_label, queries_per_label, dist
     from vqwild_tpu_torch.data.frames import SyntheticFrameStore
     from vqwild_tpu_torch.data.labels import get_split
     from vqwild_tpu_torch.data.schema import load_trimmed_db
-    from vqwild_tpu_torch.models.convert import load_reference_checkpoint
     from vqwild_tpu_torch.ops import distance, stem_pool
-    from vqwild_tpu_torch.retrieval import (
-        ARVRetrievalTrimmed, FeatureExtractor, make_fake_feat_fn, make_feat_fn,
-    )
+    from vqwild_tpu_torch.retrieval import ARVRetrievalTrimmed, FeatureExtractor, make_fake_feat_fn
     from vqwild_tpu_torch.serve.__main__ import main as serve_main
 
     def counts():
@@ -860,8 +911,7 @@ def phase_eval(dev, workdir, ckpt, *, labels, per_label, queries_per_label, dist
         raise AssertionError(f"built index: shape {feats.shape}, norms {norms.min()}..{norms.max()}")
 
     before = counts()
-    feat_fn = make_feat_fn(load_reference_checkpoint(ckpt, device=dev), wire="yuv420",
-                           dtype=torch.float32, device=dev)
+    feat_fn = serving_embed_fn(ckpt, dev)
     ex = FeatureExtractor(feat_fn, SyntheticFrameStore(), test_frames=frames,
                           test_batch_size=clips, input_size=crop, wire="yuv420",
                           max_batches=n_batches, cache_dir=os.path.join(workdir, "eval_cache"))
@@ -969,11 +1019,8 @@ def phase_clip(dev, workdir, ckpt, *, videos, queries, labels, real_videos, clip
     from vqwild_tpu_torch.data.frames import SyntheticFrameStore
     from vqwild_tpu_torch.data.labels import get_split
     from vqwild_tpu_torch.data.schema import load_moment_db
-    from vqwild_tpu_torch.models.convert import load_reference_checkpoint
     from vqwild_tpu_torch.ops import distance, stem_pool
-    from vqwild_tpu_torch.retrieval import (
-        ARVRetrievalClip, FeatureExtractor, make_fake_feat_fn, make_feat_fn,
-    )
+    from vqwild_tpu_torch.retrieval import ARVRetrievalClip, FeatureExtractor, make_fake_feat_fn
     from vqwild_tpu_torch.serve.__main__ import main as serve_main
 
     def counts():
@@ -1117,8 +1164,7 @@ def phase_clip(dev, workdir, ckpt, *, videos, queries, labels, real_videos, clip
         raise AssertionError(f"clip index: shape {feats.shape}, meta {meta[:1]}")
 
     before = counts()
-    feat_fn = make_feat_fn(load_reference_checkpoint(ckpt, device=dev), wire="yuv420",
-                           dtype=torch.float32, device=dev)
+    feat_fn = serving_embed_fn(ckpt, dev)
     ex = FeatureExtractor(feat_fn, store, test_frames=frames, test_batch_size=clips,
                           input_size=crop, wire="yuv420", max_batches=n_batches,
                           cache_dir=os.path.join(workdir, "clip_real_cache"))
@@ -1348,11 +1394,8 @@ def phase_moment(dev, workdir, ckpt, *, videos, queries, labels, query_cap, real
     from vqwild_tpu_torch.data.frames import SyntheticFrameStore
     from vqwild_tpu_torch.data.labels import get_split
     from vqwild_tpu_torch.data.schema import load_moment_db
-    from vqwild_tpu_torch.models.convert import load_reference_checkpoint
     from vqwild_tpu_torch.ops import distance, stem_pool
-    from vqwild_tpu_torch.retrieval import (
-        ARVRetrievalMoment, FeatureExtractor, make_fake_feat_fn, make_feat_fn,
-    )
+    from vqwild_tpu_torch.retrieval import ARVRetrievalMoment, FeatureExtractor, make_fake_feat_fn
     from vqwild_tpu_torch.serve.__main__ import main as serve_main
     from vqwild_tpu_torch.serve.http import make_server
     from vqwild_tpu_torch.serve.index import MomentIndex
@@ -1608,8 +1651,7 @@ def phase_moment(dev, workdir, ckpt, *, videos, queries, labels, query_cap, real
                              f"{built[:1]}")
 
     before = counts()
-    feat_fn = make_feat_fn(load_reference_checkpoint(ckpt, device=dev), wire="yuv420",
-                           dtype=torch.float32, device=dev)
+    feat_fn = serving_embed_fn(ckpt, dev)
     ex = FeatureExtractor(feat_fn, store, test_frames=frames, test_batch_size=clips,
                           input_size=crop, wire="yuv420", max_batches=n_batches,
                           cache_dir=os.path.join(workdir, "moment_real_cache"))
@@ -2321,6 +2363,391 @@ def phase_loop(dev, workdir, *, nclass, triplets, frames, crop, epochs, steps, p
     return {"launches": launches, "k1_chunk": k1_chunk}
 
 
+def write_cli_db(workdir, *, nclass, test_base, test_novel, per_label, queries_per_label,
+                 test_noise, tenth_labels, videos, queries, seed):
+    """The command line's dataset: the loop phase's training DB
+    (``write_train_db``, same arguments) with a ``testing`` split of
+    ``per_label`` records (the first ``queries_per_label`` of them queries)
+    for ``test_base`` base and ``test_novel`` test-novel labels and
+    ``test_noise`` noise records; an untrimmed DB of ``videos`` gallery
+    videos of the synthetic store's 64 frames (21.3 s) with 1-2 annotations
+    over the testing labels and ``queries`` trimmed queries plus 4 noise
+    ones. Also the spec of a tenth: the same labels over a DB whose
+    ``testing`` split keeps ``tenth_labels`` base and as many novel labels
+    and ``tenth_labels * 2`` noise records. Returns (spec, tenth spec)."""
+    os.makedirs(workdir, exist_ok=True)
+    spec_path = write_train_db(workdir, nclass=nclass, novel=40, per_class=6,
+                               val_labels=LOOP_VAL_LABELS, val_per_label=LOOP_VAL_PER_LABEL,
+                               val_noise=LOOP_VAL_NOISE, seed=seed)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    with open(os.path.join(workdir, spec["db_json"])) as f:
+        db = json.load(f)
+    rng = np.random.default_rng(seed + 1)
+    dur = 64 / 3
+    serial = iter(range(10**9))
+
+    def record(label, rtype, is_query, prefix="e"):
+        start = float(rng.uniform(0.0, 5.0))
+        seg = [start, start + float(rng.uniform(8.0, 14.0))]
+        return {"video_id": f"{prefix}_{next(serial):07d}", "label": label, "segment": seg,
+                "border": seg, "activitynet_subset": "validation",
+                "activitynet_duration": dur, "is_query": is_query, "retrieval_type": rtype}
+
+    base, novel = spec["train_labels"][:test_base], spec["test_labels"][:test_novel]
+    labels = base + novel
+    testing = {name: [record(name, "base" if name in base else "novel",
+                             1 if j < queries_per_label else 0) for j in range(per_label)]
+               for name in labels}
+    testing["distractor_activity"] = [record("distractor_activity", "noise", -1)
+                                      for _ in range(test_noise)]
+    db["testing"] = testing
+    with open(os.path.join(workdir, spec["db_json"]), "w") as f:
+        json.dump(db, f)
+    tenth = dict(db, testing={k: v for k, v in testing.items()
+                              if k in base[:tenth_labels] + novel[:tenth_labels]})
+    tenth["testing"]["distractor_activity"] = testing["distractor_activity"][:2 * tenth_labels]
+    with open(os.path.join(workdir, "arv_db_tenth.json"), "w") as f:
+        json.dump(tenth, f)
+
+    gallery = []
+    for i in range(videos):
+        anns = []
+        for _ in range(int(rng.integers(1, 3))):
+            length = dur * float(rng.uniform(0.2, 0.6))
+            start = float(rng.uniform(0.0, dur - length))
+            anns.append({"segment": [start, start + length],
+                         "label": labels[int(rng.integers(len(labels)))]})
+        gallery.append({"video_id": f"g_{i:06d}", "label": "", "segment": [0.0, dur],
+                        "border": [0.0, dur], "activitynet_subset": "validation",
+                        "activitynet_duration": dur, "is_query": 0, "retrieval_type": "",
+                        "annotations": anns})
+    query = [record(labels[j % len(labels)], "base" if labels[j % len(labels)] in base
+                    else "novel", 1, "q") for j in range(queries)]
+    query += [record("distractor_activity", "noise", 1, "q") for _ in range(4)]
+    with open(os.path.join(workdir, "arv_db_cli_untrimmed.json"), "w") as f:
+        json.dump({"query": query, "gallery": gallery}, f)
+    spec["moment_db_json"] = "arv_db_cli_untrimmed.json"
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    tenth_spec = os.path.join(workdir, "split_tenth.json")
+    with open(tenth_spec, "w") as f:
+        json.dump(dict(spec, db_json="arv_db_tenth.json"), f)
+    return spec_path, tenth_spec
+
+
+def k1_plan(ev):
+    """The K1 calls an evaluator's own queries ask for, as its
+    ``evaluation()`` (without diagnostics) chunks them, read after it ran:
+    the query rows of each call, and the gallery rows where the evaluator
+    keeps its gallery (the trimmed one: its records; the clip and moment
+    galleries are built inside ``evaluation()``)."""
+    from vqwild_tpu_torch.retrieval import ARVRetrievalMoment, ARVRetrievalTrimmed
+
+    if isinstance(ev, ARVRetrievalTrimmed):
+        n = sum(1 for r in ev.records if r.label in ev.possible_classes and r.is_query == 1)
+        b = min(ev.rank_chunk, n)
+        return [b] * -(-n // b), len(ev.records)
+    ex = ev.extractor
+    pool = ev.queries if ex.max_batches is None else ev.queries[:ex.max_batches
+                                                                * ex.test_batch_size]
+    n = sum(1 for q in pool if q.label in ev.possible_classes)
+    if not isinstance(ev, ARVRetrievalMoment):
+        b = min(ev.rank_chunk, n)
+        return [b] * -(-n // b), None
+    if ev.resolved_engine != "device":
+        return [min(ev.rank_chunk, n - i) for i in range(0, n, ev.rank_chunk)], None
+    # the device engine's chunks, padded to whole super-chunks of scan_chunks
+    b = min(ev.rank_chunk, MOMENT_DEVICE_CHUNK)
+    chunks = -(-n // b)
+    if ev.scan_chunks > 0:
+        scan = min(ev.scan_chunks, chunks)
+        chunks = -(-chunks // scan) * scan
+    return [b] * chunks, None
+
+
+class Instrumented:
+    """Times what the command line runs inside it, without changing it: a
+    CUDA event pair (or the host clock on the CPU) around every train step
+    made by ``vqwild_tpu_torch.train.make_train_step``, and the seconds and
+    ``timings`` of every evaluator's ``evaluation()``. Records the shape of
+    every call of ``ops.distance.sq_l2`` (K1 on a CUDA tensor), and with
+    each evaluation the calls it made and ``k1_plan`` of the evaluator."""
+
+    def __init__(self, cuda):
+        import vqwild_tpu_torch.train as train
+        from vqwild_tpu_torch.ops import distance
+        from vqwild_tpu_torch.retrieval import (
+            ARVRetrievalClip, ARVRetrievalMoment, ARVRetrievalTrimmed,
+        )
+
+        self.cuda = cuda
+        self.steps, self.evals, self.k1 = [], [], []
+        self._train = train
+        self._distance = distance
+        self._classes = (ARVRetrievalTrimmed, ARVRetrievalClip, ARVRetrievalMoment)
+        self._saved = []
+
+    def __enter__(self):
+        import torch
+
+        sq_l2 = self._distance.sq_l2
+
+        def recorded(q, g):
+            self.k1.append((q.shape[0], g.shape[0], q.shape[1]))
+            return sq_l2(q, g)
+
+        # ops.distance.score_matrix, every evaluator's scorer, looks sq_l2 up
+        # in its module at each call
+        self._saved.append((self._distance, "sq_l2", sq_l2))
+        self._distance.sq_l2 = recorded
+        make = self._train.make_train_step
+
+        def make_timed(*a, **k):
+            step = make(*a, **k)
+
+            def timed(*args, **kw):
+                if self.cuda:
+                    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    start.record()
+                    out = step(*args, **kw)
+                    end.record()
+                    self.steps.append((start, end))
+                else:
+                    t0 = time.perf_counter()
+                    out = step(*args, **kw)
+                    self.steps.append(1e3 * (time.perf_counter() - t0))
+                return out
+            return timed
+
+        self._saved.append((self._train, "make_train_step", make))
+        self._train.make_train_step = make_timed
+        for cls in self._classes:
+            evaluation = cls.evaluation
+
+            def timed_eval(ev_self, _evaluation=evaluation, _name=cls.__name__):
+                first = len(self.k1)
+                t0 = time.perf_counter()
+                out = _evaluation(ev_self)
+                rows, gallery_rows = k1_plan(ev_self)
+                self.evals.append({"evaluator": _name,
+                                   "split": getattr(ev_self, "eval_split", "testing"),
+                                   "s": time.perf_counter() - t0,
+                                   "timings": dict(ev_self.timings),
+                                   "k1_calls": self.k1[first:],
+                                   "k1_plan": {"rows": rows, "gallery_rows": gallery_rows}})
+                return out
+
+            self._saved.append((cls, "evaluation", evaluation))
+            cls.evaluation = timed_eval
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in reversed(self._saved):
+            setattr(obj, name, fn)
+        self._saved.clear()
+
+    def step_ms(self):
+        if self.cuda:
+            import torch
+
+            torch.cuda.synchronize()
+            return [a.elapsed_time(b) for a, b in self.steps]
+        return list(self.steps)
+
+
+def all_aps(tree, path="results"):
+    """(path, value) of every entry named ``ap`` in a metrics tree."""
+    if not isinstance(tree, dict):
+        return []
+    out = [(f"{path}.ap", float(tree["ap"]))] if "ap" in tree else []
+    for k, v in tree.items():
+        out += all_aps(v, f"{path}.{k}")
+    return out
+
+
+def phase_cli(dev, workdir, *, nclass, triplets, frames, crop, clips, workers, test_base,
+              test_novel, per_label, queries_per_label, test_noise, tenth_labels, videos,
+              queries, feat_dim=512):
+    """The command line (``vqwild_tpu_torch.apps.cli.main``) in this
+    process, with the launch counters zeroed just before its four parts and
+    read just after: (1) train va on the yuv420 wire under --debug
+    (2 epochs of <= 2 steps, <= 8 embed batches an extraction), validating
+    every epoch, writing ``last`` and ``best`` and ending in the final
+    --eval_all on ``testing``; (2) --export_torch of ``best``, reloaded by
+    ``convert.load_reference_model(strict=True)`` and held bit-equal to the
+    checkpoint; (3) --evaluate --eval_all from the exported file; (4) the
+    server's ``_build_embed_fn`` from the ``best`` directory and from the
+    file, one embed batch each, held equal. Then, uncounted, the trimmed
+    evaluation of a tenth of the testing records on the card and with
+    --device cpu, every metric within EVAL_METRIC_TOL. Every K1 call of an
+    evaluation is held to what its evaluator's queries ask for
+    (``k1_plan``), and on the card every counted K1 launch to one such
+    call. Returns the launches, and K1's shapes and calls by regime."""
+    import torch
+
+    from vqwild_tpu_torch.apps import cli
+    from vqwild_tpu_torch.data.frames import SyntheticFrameStore
+    from vqwild_tpu_torch.data.schema import load_trimmed_db
+    from vqwild_tpu_torch.data.clips import batch_cropped_clips, read_clip_raw
+    from vqwild_tpu_torch.models.convert import load_reference_model
+    from vqwild_tpu_torch.ops import distance, stem_pool
+    from vqwild_tpu_torch.ops.preprocess import rgb_to_yuv420_host
+    from vqwild_tpu_torch.train.checkpoint import CheckpointManager
+
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    spec, tenth = write_cli_db(workdir, nclass=nclass, test_base=test_base,
+                               test_novel=test_novel, per_label=per_label,
+                               queries_per_label=queries_per_label, test_noise=test_noise,
+                               tenth_labels=tenth_labels, videos=videos, queries=queries, seed=23)
+    def common(meta, device):
+        return ["--method", "va", "--meta_split", meta, "--data_root", workdir,
+                "--frame_store", "synthetic", "--input_size", str(crop), "--train_frame",
+                str(frames), "--test_frame", str(frames), "--batch_size", str(triplets),
+                "--test_batch_size", str(clips), "--workers", str(workers), "--wire", "yuv420",
+                "--device", device]
+
+    run = os.path.join(workdir, "run")
+    best = os.path.join(run, "checkpoints", "best")
+    pth = os.path.join(workdir, "best.pth.tar")
+    wall = {}
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    distance.launches.reset()
+    stem_pool.launches.reset()
+    # ---- the command line's path, from here to the counter read ----
+    with Instrumented(cuda) as ins:
+        t0 = time.perf_counter()
+        trained = cli.main(common(spec, dev.type) + ["--debug", "--eval_per_epoch", "1",
+                                                     "--run_dir", run])
+        wall["train_s"] = time.perf_counter() - t0
+        n_train_evals = len(ins.evals)
+        t0 = time.perf_counter()
+        cli.main(common(spec, dev.type) + ["--test_load", best, "--export_torch", pth])
+        wall["export_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        evaluated = cli.main(common(spec, dev.type) + [
+            "--evaluate", "--eval_all", "--debug", "--test_load", pth,
+            "--run_dir", os.path.join(workdir, "run_eval")])
+        wall["evaluate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store = SyntheticFrameStore()
+    db = load_trimmed_db(os.path.join(workdir, "arv_db_train.json"))
+    recs = db.flat("testing")[:clips]
+    y, uv = rgb_to_yuv420_host(batch_cropped_clips(
+        [read_clip_raw(store, r, frames, fps=3, rng=None, crop_size=crop) for r in recs]))
+    emb_dir = serving_embed_fn(best, dev, "--method", "va")(y, uv)
+    emb_pth = serving_embed_fn(pth, dev, "--method", "va")(y, uv)
+    wall["serve_s"] = time.perf_counter() - t0
+    if cuda:
+        torch.cuda.synchronize()
+    launches = {"sq_l2": distance.launches.n, "stem_s2d_pool": stem_pool.launches.n}
+    # ---- end of the command line's path ----
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    step_ms = ins.step_ms()
+
+    payload = CheckpointManager(os.path.dirname(best)).restore("best", map_location="cpu")
+    reloaded = load_reference_model(pth, "va", device="cpu").state_dict()
+    not_equal = sorted(k for k, v in payload["model"].items()
+                       if k not in reloaded or not torch.equal(v, reloaded[k]))
+    not_equal += sorted(set(reloaded) - set(payload["model"]))
+    exported_keys = len(torch.load(pth, map_location="cpu", weights_only=True)["state_dict"])
+
+    # the same trimmed evaluation of a tenth of the records on the card and
+    # on the CPU (uncounted)
+    t0 = time.perf_counter()
+    by_dev = {d: cli.main(common(tenth, d) + ["--evaluate", "--test_load", pth, "--run_dir",
+                                              os.path.join(workdir, f"run_tenth_{d}")])
+              for d in (("cuda", "cpu") if cuda else ("cpu",))}
+    tenth_s = time.perf_counter() - t0
+    tenth_diff = (tree_max_diff(by_dev["cuda"]["trimmed"], by_dev["cpu"]["trimmed"])
+                  if cuda else 0.0)
+    n_tenth = len(load_trimmed_db(os.path.join(workdir, "arv_db_tenth.json")).flat("testing"))
+
+    # K1's calls by regime (the validations inside training; the trimmed,
+    # clip and moment evaluations of `testing`), each evaluation's held to
+    # what its evaluator's own queries and gallery ask for
+    regime = {"ARVRetrievalTrimmed": "trimmed", "ARVRetrievalClip": "clip",
+              "ARVRetrievalMoment": "moment"}
+    k1_chunks, k1_by_regime, k1_faults = {}, {}, []
+    for e in ins.evals:
+        name = "validation" if e["split"] == "validation" else regime[e["evaluator"]]
+        calls, plan = e.pop("k1_calls"), e["k1_plan"]
+        galleries = {c[1] for c in calls}
+        if ([c[0] for c in calls] != plan["rows"] or len(galleries) != 1
+                or {c[2] for c in calls} != {feat_dim}
+                or plan["gallery_rows"] not in (None, *galleries)):
+            k1_faults.append(f"{name}: K1 calls {calls}, the evaluator asks for {plan}")
+        k1_chunks.setdefault(name, set()).update(calls)
+        k1_by_regime[name] = k1_by_regime.get(name, 0) + len(calls)
+    k1_chunks = {k: sorted(v) for k, v in k1_chunks.items()}
+    testing = db.flat("testing")
+    with open(os.path.join(run, "metrics", "train_history.json")) as f:
+        history = json.load(f)
+    evals = [{**e, "timings": {k: round(v, 4) for k, v in e["timings"].items()}}
+             for e in ins.evals]
+    row = {"phase": "cli", "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
+           "method": "va", "dtype": "float32", "wire": "yuv420", "nclass": nclass,
+           "clips_per_step": 3 * triplets, "frames": frames, "crop": crop,
+           "test_batch_size": clips, "workers": workers,
+           "reduced": {"epochs": 2, "steps_per_epoch_at_most": 2,
+                       "embed_batches_per_extraction_at_most": 8,
+                       "testing_records": len(testing), "untrimmed_videos": videos,
+                       "untrimmed_queries": queries,
+                       "why": "--debug cuts the run's depth; the testing split and the "
+                              "untrimmed DB fit 8 embed batches"},
+           "step_ms_median": float(np.median(step_ms)) if step_ms else None,
+           "step_ms": step_ms,
+           "step_ms_from": "CUDA events around each step" if cuda else "host clock (CPU)",
+           "validation_s": [e["s"] for e in evals[:n_train_evals] if e["split"] == "validation"],
+           "evaluators": evals, "wall_s": wall, "peak_memory_gb": peak,
+           "history": history["history"], "best_epoch": history["best_epoch"],
+           "final_eval_aps": all_aps(trained), "evaluate_aps": all_aps(evaluated),
+           "moment_engine": evaluated["moment"]["engine"],
+           "export": {"keys": exported_keys, "tensors_not_bit_equal": not_equal},
+           "serve_dir_vs_pth_max_abs": float(np.abs(emb_dir - emb_pth).max()),
+           "tenth": {"records": n_tenth, "card_vs_cpu_max_abs": tenth_diff, "s": tenth_s},
+           "k1_chunks": {k: [list(c) for c in v] for k, v in k1_chunks.items()},
+           "k1_launches_by_regime": k1_by_regime, "phase_s": time.perf_counter() - t_phase,
+           "launches": launches}
+    emit(row)
+    bad = list(k1_faults)
+    for name, ap in all_aps(trained) + all_aps(evaluated):
+        if not 0.0 <= ap <= 1.0:
+            bad.append(f"{name} = {ap} outside [0, 1]")
+    if set(trained) != {"trimmed", "clip", "moment"} or set(evaluated) != set(trained):
+        bad.append(f"regimes {sorted(trained)} / {sorted(evaluated)}")
+    if [h["steps"] for h in history["history"]] != [2, 2]:
+        bad.append(f"steps by epoch {[h['steps'] for h in history['history']]}")
+    if not all(np.isfinite(v) for h in history["history"] for v in h["losses"].values()):
+        bad.append("a training loss is not finite")
+    if not (os.path.isdir(best) and os.path.isdir(os.path.join(run, "checkpoints", "last"))):
+        bad.append("best or last was not written")
+    if not_equal:
+        bad.append(f"the export differs from the checkpoint at {not_equal[:5]}")
+    if row["serve_dir_vs_pth_max_abs"] > 1e-5:
+        bad.append(f"serve: directory vs .pth.tar embeddings {row['serve_dir_vs_pth_max_abs']}")
+    if tenth_diff > EVAL_METRIC_TOL:
+        bad.append(f"tenth: card vs CPU {tenth_diff} > {EVAL_METRIC_TOL}")
+    if len(step_ms) != 4:
+        bad.append(f"{len(step_ms)} train steps timed, 4 run")
+    if cuda:
+        if launches["sq_l2"] < 1 or launches["stem_s2d_pool"] < 1:
+            bad.append(f"a kernel of the command line's path never launched: {launches}")
+        if launches["sq_l2"] != len(ins.k1) or len(ins.k1) != sum(k1_by_regime.values()):
+            bad.append(f"K1 launched {launches['sq_l2']} times; the evaluators made "
+                       f"{k1_by_regime}, {len(ins.k1)} calls in all")
+        if evaluated["moment"]["engine"] != "device":
+            bad.append(f"moment engine {evaluated['moment']['engine']} on the card")
+    if bad:
+        raise AssertionError("cli: " + "; ".join(bad))
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"launches": launches, "k1_chunks": k1_chunks, "k1_launches": k1_by_regime}
+
+
 def main() -> int:
     import torch
 
@@ -2358,6 +2785,12 @@ def main() -> int:
                           val_labels=LOOP_VAL_LABELS, val_per_label=LOOP_VAL_PER_LABEL,
                           val_noise=LOOP_VAL_NOISE, clips=CLIPS,
                           loader_workers=LOOP_LOADER_WORKERS)
+        cli = phase_cli(dev, os.path.join(workdir, "cli"), nclass=TRAIN_NCLASS,
+                        triplets=TRAIN_TRIPLETS, frames=FRAMES, crop=CROP, clips=CLIPS,
+                        workers=LOOP_WORKERS, test_base=CLI_TEST_BASE,
+                        test_novel=CLI_TEST_NOVEL, per_label=CLI_PER_LABEL,
+                        queries_per_label=CLI_QUERIES_PER_LABEL, test_noise=CLI_TEST_NOISE,
+                        tenth_labels=CLI_TENTH_LABELS, videos=CLI_VIDEOS, queries=CLI_QUERIES)
         serve = phase_serve(dev, workdir, batches=EMBED_BATCHES, clips=CLIPS, frames=FRAMES,
                             crop=CROP, gallery_rows=GALLERY_ROWS, ref_clips=2, ref_frames=4,
                             n_feature_q=32, n_clip_q=8)
@@ -2381,6 +2814,11 @@ def main() -> int:
     if loop["k1_chunk"] != K1_LOOP_CHUNK:
         raise AssertionError(f"the loop's validation ran K1 at {loop['k1_chunk']}; K1 was timed "
                              f"at {K1_LOOP_CHUNK}")
+    cli_chunks = {"validation": [K1_LOOP_CHUNK], "trimmed": [K1_CLI_CHUNK],
+                  "clip": [K1_CLI_CLIP_CHUNK], "moment": [K1_CLI_MOMENT_CHUNK]}
+    if cli["k1_chunks"] != cli_chunks:
+        raise AssertionError(f"the command line's evaluations ran K1 at {cli['k1_chunks']}; K1 "
+                             f"was timed at {cli_chunks}")
 
     k1_main = k1[0]  # (16, 7670, 512): the smoke's gallery at a full query bucket
     k1_eval = next(r for r in k1 if tuple(r["shape"]) == K1_EVAL_CHUNK)
@@ -2388,10 +2826,13 @@ def main() -> int:
     k1_moment = next(r for r in k1 if tuple(r["shape"]) == K1_MOMENT_CHUNK)
     k1_moment_device = next(r for r in k1 if tuple(r["shape"]) == K1_MOMENT_DEVICE_CHUNK)
     k1_loop = next(r for r in k1 if tuple(r["shape"]) == K1_LOOP_CHUNK)
+    k1_cli = next(r for r in k1 if tuple(r["shape"]) == K1_CLI_CHUNK)
+    k1_cli_clip = next(r for r in k1 if tuple(r["shape"]) == K1_CLI_CLIP_CHUNK)
+    k1_cli_moment = next(r for r in k1 if tuple(r["shape"]) == K1_CLI_MOMENT_CHUNK)
     k2_main = k2[0]  # an embed batch in fp32, the serving dtype
     paths = {"serve": serve["launches"], "eval": evald["launches"], "clip": clip["launches"],
              "moment": moment["launches"], "train": train["launches"],
-             "loop": loop["launches"]}
+             "loop": loop["launches"], "cli": cli["launches"]}
     launches = {k: sum(p[k] for p in paths.values()) for k in serve["launches"]}
     chunk_keys = ("shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
@@ -2407,7 +2848,11 @@ def main() -> int:
          "clip_chunk": {k: k1_clip[k] for k in chunk_keys},
          "moment_chunk": {k: k1_moment[k] for k in chunk_keys},
          "moment_device_chunk": {k: k1_moment_device[k] for k in chunk_keys},
-         "loop_chunk": {k: k1_loop[k] for k in chunk_keys}},
+         "loop_chunk": {k: k1_loop[k] for k in chunk_keys},
+         "cli_chunk": {k: k1_cli[k] for k in chunk_keys},
+         "cli_clip_chunk": {k: k1_cli_clip[k] for k in chunk_keys},
+         "cli_moment_chunk": {k: k1_cli_moment[k] for k in chunk_keys},
+         "cli_launches_by_regime": cli["k1_launches"]},
         {"name": "stem_s2d_pool", "route": "cuda", "source": "vqwild_tpu_torch/csrc/stem_pool.cu",
          "replaces": "vqwild_tpu/ops/pallas_kernels.py:152",
          "launches": launches["stem_s2d_pool"],

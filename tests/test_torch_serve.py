@@ -315,6 +315,57 @@ class TestServerEntryPoint:
         assert a.shape == (2, 512, 2) and np.isfinite(a).all()
         np.testing.assert_array_equal(a, b)
 
+    @pytest.mark.parametrize("method", ["va", "vasa"])
+    def test_serves_a_port_checkpoint_directory(self, tiny_arv, tmp_path, method):
+        """--test_load takes a checkpoint directory of the port's training
+        (CheckpointManager: <dir>/<name>/state.pt) and --method picks the
+        model: the server's embeddings equal the trained model's own
+        make_feat_fn(wire="yuv420")."""
+        from vqwild_tpu_torch.core.config import ModelConfig
+        from vqwild_tpu_torch.core.logging import get_logger
+        from vqwild_tpu_torch.models.arv import build_model
+        from vqwild_tpu_torch.serve.__main__ import _build_embed_fn
+        from vqwild_tpu_torch.train.checkpoint import CheckpointManager
+
+        spec = write_split_spec(tiny_arv, tmp_path / "spec.json")
+        model = build_model(ModelConfig(method=method, nclass=tiny_arv["nclass"]), "cpu", seed=9)
+        with torch.no_grad():  # BN statistics off their init
+            for name, buf in model.named_buffers():
+                if name.endswith("running_var"):
+                    buf.uniform_(0.5, 1.5)
+        CheckpointManager(str(tmp_path / "ckpt")).save(
+            "best", dict(model=model.state_dict(), epoch=0, score=0.5))
+        args = SimpleNamespace(test_load=str(tmp_path / "ckpt" / "best"), method=method,
+                               meta_split=spec, data_root=tiny_arv["root"], frames_dir="",
+                               input_size=32, test_frame=2, test_batch_size=4,
+                               frame_store="synthetic", eval_split="testing")
+        rng = np.random.default_rng(4)
+        y, uv = rgb_to_yuv420_host(rng.integers(0, 256, (2, 2, 32, 32, 3), dtype=np.uint8))
+        got = _build_embed_fn(args, torch.device("cpu"), torch.float32, get_logger("test"))(y, uv)
+        from vqwild_tpu_torch.retrieval.features import make_feat_fn
+
+        want = make_feat_fn(model, wire="yuv420", device="cpu")(y, uv)
+        np.testing.assert_array_equal(got, want)
+
+    def test_reads_the_checkpoint_once(self, tmp_path, monkeypatch):
+        """The server sizes the heads and loads the weights from one read of
+        --test_load, with the flags as serve.parse_args gives them."""
+        from vqwild_tpu_torch.apps import cli
+        from vqwild_tpu_torch.core.logging import get_logger
+        from vqwild_tpu_torch.serve.__main__ import _build_embed_fn, parse_args
+
+        ckpt = str(tmp_path / "best.pth.tar")
+        torch_export.save_reference_checkpoint(
+            ckpt, full_model_variables(random_trunk_variables(seed=9)), "baseline")
+        reads = []
+        read = cli.checkpoint_state_dict
+        monkeypatch.setattr(cli, "checkpoint_state_dict",
+                            lambda path: reads.append(path) or read(path))
+        args = parse_args(["--index_dir", str(tmp_path / "idx"), "--test_load", ckpt,
+                           "--device", "cpu"])
+        _build_embed_fn(args, torch.device("cpu"), torch.float32, get_logger("test"))
+        assert reads == [ckpt]
+
     def test_missing_index_raises(self, tmp_path):
         """No index on disk and nothing to build one with."""
         with pytest.raises(SystemExit, match="--no_embed requires an existing"):
@@ -423,14 +474,16 @@ class TestPortRules:
         # ranking and trimmed-evaluator modules, the clip regime's and the
         # moment regime's (with the native engine's bindings and the device
         # engine), the heads, the full model and the train step, the triplet
-        # loader, the loop, its checkpoints and the summaries
-        assert len(files) >= 58
+        # loader, the loop, its checkpoints and the summaries, the command
+        # line with its entry, the 2D inflation and the checkpoint fingerprint
+        assert len(files) >= 61
         assert {"data/frames.py", "ops/ranking.py", "retrieval/trimmed.py", "apps/cli.py",
                 "data/longvideo.py", "ops/segment_pool.py", "retrieval/clip.py",
                 "core/hostsig.py", "native/__init__.py", "native/lib.py", "ops/nms.py",
                 "retrieval/moment.py", "retrieval/moment_device.py", "models/heads.py",
                 "models/arv.py", "train/__init__.py", "train/step.py", "data/triplets.py",
-                "train/loop.py", "train/checkpoint.py", "core/summaries.py"} <= {
+                "train/loop.py", "train/checkpoint.py", "core/summaries.py", "__main__.py",
+                "models/quant.py", "models/torch_import.py", "core/profiling.py"} <= {
             str(f.relative_to(REPO / "vqwild_tpu_torch")) for f in files[:-1]}
         bad = []
         for f in files:

@@ -2,7 +2,6 @@
 JAX package, on the CPU. Weights and inputs are made with numpy from a seed
 and handed to both sides."""
 
-import os
 import pickle
 from types import SimpleNamespace
 
@@ -17,12 +16,10 @@ from vqwild_tpu.models import torch_export
 from vqwild_tpu.models.resnet_f2f import ResNet18F2F as JaxResNet18F2F
 from vqwild_tpu.ops import preprocess as jpre
 from vqwild_tpu.retrieval.features import make_feat_fn as jax_make_feat_fn
+from vqwild_tpu_torch.apps import cli
+from vqwild_tpu_torch.core.config import ExperimentConfig
 from vqwild_tpu_torch.models import fold
-from vqwild_tpu_torch.models.convert import (
-    load_reference_checkpoint,
-    state_dict_from_jax,
-    trunk_from_state_dict,
-)
+from vqwild_tpu_torch.models.convert import state_dict_from_jax, trunk_from_state_dict
 from vqwild_tpu_torch.models.resnet_f2f import ResNet18F2F
 from vqwild_tpu_torch.ops import preprocess
 from vqwild_tpu_torch.retrieval.features import make_feat_fn
@@ -109,38 +106,49 @@ class TestResNet18F2F:
             np.testing.assert_array_equal(full.sd[k].numpy(), v, err_msg=k)
         assert full.sd["conv1.weight"].shape == (64, 3, 1, 7, 7)
 
-    def test_reference_checkpoint_gives_same_features(self, narrow, tmp_path):
+    def test_reference_checkpoint_gives_same_features(self, full, tmp_path):
+        """A reference file that the JAX exporter wrote loads through the
+        port's loader (apps/cli.load_variables) into a baseline model whose
+        trunk gives the JAX trunk's features and whose fc is the file's."""
         path = str(tmp_path / "best.pth.tar")
-        torch_export.save_reference_checkpoint(path, full_model_variables(narrow.vars),
-                                               "baseline")
-        model = load_reference_checkpoint(path, device="cpu")
-        assert model.stage_planes == (8, 16, 32, 64)
+        torch_export.save_reference_checkpoint(path, full.vars, "baseline")
+        model = cli.load_variables(path, "baseline", cli.build_arv_model(ExperimentConfig(), "cpu"))
+        x = np.random.default_rng(1).standard_normal((2, 2, 32, 32, 3)).astype(np.float32)
+        trunk_vars = {k: full.vars[k]["trunk"] for k in ("params", "batch_stats")}
+        want = np.asarray(JaxResNet18F2F().apply(trunk_vars, x, train=False))
         with torch.no_grad():
-            got = model(torch.from_numpy(narrow.x)).numpy()
-        np.testing.assert_allclose(got, narrow.want, rtol=FP32_TOL, atol=FP32_TOL)
+            got = model.eval()(torch.from_numpy(x)).frame_embed.numpy()
+        assert got.shape == want.shape == (2, 2, 512)
+        np.testing.assert_allclose(got, want, rtol=FP32_TOL, atol=FP32_TOL)
+        np.testing.assert_array_equal(model.fc.weight.detach().numpy(),
+                                      full.vars["params"]["fc"]["kernel"].T)
 
-    def test_checkpoint_head_keys_ignored_unknown_keys_rejected(self, narrow, tmp_path):
-        sd = {"module." + k: v for k, v in state_dict_from_jax(narrow.vars).items()}
-        # va/vasa heads ride along in the reference checkpoint
-        for k in ("fc.weight", "visual_memory", "cls_nl.theta.weight",
-                  "rank_nl.g.weight", "nled_fc.weight", "word_adaptor.fc.weight"):
+    def test_checkpoint_head_keys_ignored_unknown_keys_rejected(self, full, tmp_path):
+        sd = {"module." + k: v for k, v in full.sd.items()}
+        # va/vasa heads ride along in the reference checkpoint; a baseline
+        # model has no use for them
+        for k in ("visual_memory", "cls_nl.theta.weight", "rank_nl.g.weight",
+                  "nled_fc.weight", "word_adaptor.fc.weight"):
             sd["module." + k] = torch.zeros(3)
         path = str(tmp_path / "va.pth.tar")
         torch.save({"epoch": 1, "state_dict": sd, "score": 0.0, "optimizer": {}}, path)
-        load_reference_checkpoint(path, device="cpu")
+        got = cli.load_variables(path, "baseline",
+                                 cli.build_arv_model(ExperimentConfig(), "cpu")).state_dict()
+        for k, v in full.sd.items():
+            assert torch.equal(got[k], v), k
         sd["module.layer1.0.bn3.weight"] = torch.zeros(8)
         torch.save({"state_dict": sd}, path)
-        with pytest.raises(RuntimeError):
-            load_reference_checkpoint(path, device="cpu")
+        with pytest.raises(KeyError, match="layer1.0.bn3.weight"):
+            cli.load_variables(path, "baseline", cli.build_arv_model(ExperimentConfig(), "cpu"))
 
-
-    def test_reference_checkpoint_with_numpy_score_and_adam_state(self, narrow, tmp_path):
+    def test_reference_checkpoint_with_numpy_score_and_adam_state(self, full, tmp_path):
         """The reference's own save: a numpy ``score`` and a real optimizer
         state beside the state_dict. It loads, and the trunk is the saved
         one."""
-        saved = trunk_from_state_dict(state_dict_from_jax(narrow.vars))
+        saved = trunk_from_state_dict(full.sd)
         opt = torch.optim.Adam(saved.parameters(), lr=1e-4)
-        loss = saved(torch.from_numpy(narrow.x)).square().mean()
+        x = np.random.default_rng(1).standard_normal((1, 1, 32, 32, 3)).astype(np.float32)
+        loss = saved(torch.from_numpy(x)).square().mean()
         loss.backward()
         opt.step()
         sd = {"module." + k: v for k, v in saved.state_dict().items()}
@@ -149,11 +157,9 @@ class TestResNet18F2F:
                     "optimizer": opt.state_dict()}, path)
         with pytest.raises(pickle.UnpicklingError):
             torch.load(path, map_location="cpu", weights_only=True)
-        model = load_reference_checkpoint(path, device="cpu")
-        want = saved.state_dict()
+        model = cli.load_variables(path, "baseline", cli.build_arv_model(ExperimentConfig(), "cpu"))
         got = model.state_dict()
-        assert set(got) == set(want)
-        for k, v in want.items():
+        for k, v in saved.state_dict().items():
             assert torch.equal(got[k], v), k
 
 
@@ -282,14 +288,12 @@ class TestEmbedFn:
 
 
 class TestDeviceRule:
-    def test_cuda_default_raises_without_gpu(self, full, tmp_path):
+    def test_cuda_default_raises_without_gpu(self, full):
         if torch.cuda.is_available():
             pytest.skip("a GPU is present: the default device is usable")
         with pytest.raises(RuntimeError, match="cuda"):
             fold.make_embed_fn(full.sd)
         with pytest.raises(RuntimeError, match="cuda"):
             make_feat_fn(trunk_from_state_dict(full.sd), wire="yuv420")
-        path = os.path.join(tmp_path, "ckpt.pth.tar")
-        torch.save({"state_dict": full.sd}, path)
         with pytest.raises(RuntimeError, match="cuda"):
-            load_reference_checkpoint(path)
+            cli.build_arv_model(ExperimentConfig())

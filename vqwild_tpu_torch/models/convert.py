@@ -10,6 +10,8 @@ key names and weight shapes, so both paths end in one ``state_dict`` layout:
                                               running_var (+ num_batches_tracked)
 
 (the transforms of vqwild_tpu/models/torch_export.py, kept here as a copy).
+``save_reference_checkpoint`` writes a model back out as a reference
+``best.pth.tar`` (vqwild_tpu/models/torch_export.py:72-132).
 """
 
 from __future__ import annotations
@@ -162,30 +164,19 @@ def trunk_from_state_dict(sd: Mapping[str, torch.Tensor]) -> ResNet18F2F:
     return model.eval()
 
 
-def load_reference_checkpoint(path: str, device: Union[str, torch.device] = "cuda") -> ResNet18F2F:
-    """A reference-format ``best.pth.tar`` (baseline, va or vasa; keys
-    optionally ``module.``-prefixed) → its trunk as an eval ``ResNet18F2F``
-    on ``device``. Head entries are ignored; the trunk loads strictly.
-
-    The reference saves ``{epoch, state_dict, score, optimizer}`` with a
-    numpy ``score``, which plain ``weights_only=True`` refuses. The file is
-    read with ``weights_only=True`` and the numpy scalar, ndarray and dtype
-    reconstructors allowed (``_numpy_safe_globals``), never with
-    ``weights_only=False``: no other global can run while it loads."""
-    dev = resolve_device(device)
-    sd = _read_reference_state_dict(path)
-    trunk = {k: v for k, v in sd.items() if k.split(".", 1)[0] not in _NON_TRUNK}
-    return trunk_from_state_dict(trunk).to(dev)
-
-
 def load_reference_model(path: str, method: str, device: Union[str, torch.device] = "cuda",
                          **model_kwargs) -> ARVModel:
     """A reference-format ``best.pth.tar`` of ``method`` → the full
     ``ARVModel`` on ``device``, loaded with ``strict=True``. Only the dead
     ``rank_nl.*`` keys are dropped (vqwild_tpu/models/arv.py:19-21; the JAX
     importer skips them too). ``nclass`` and ``semantic_dim`` are read off
-    the weights; ``model_kwargs`` go to ``ARVModel``. The file is read as
-    ``load_reference_checkpoint`` reads it."""
+    the weights; ``model_kwargs`` go to ``ARVModel``.
+
+    The reference saves ``{epoch, state_dict, score, optimizer}`` with a
+    numpy ``score``, which plain ``weights_only=True`` refuses. The file is
+    read with ``weights_only=True`` and the numpy scalar, ndarray and dtype
+    reconstructors allowed (``_numpy_safe_globals``), never with
+    ``weights_only=False``: no other global can run while it loads."""
     dev = resolve_device(device)
     sd = {k: v for k, v in _read_reference_state_dict(path).items()
           if not k.startswith("rank_nl.")}
@@ -195,6 +186,26 @@ def load_reference_model(path: str, method: str, device: Union[str, torch.device
     model = ARVModel(method=method, **model_kwargs)
     model.load_state_dict(sd, strict=True)
     return model.to(dev)
+
+
+def save_reference_checkpoint(path: str, model: ARVModel, method: str) -> None:
+    """Write ``model`` as a reference-compatible ``best.pth.tar``:
+    ``{epoch, state_dict, score, optimizer: {}}`` with every key prefixed
+    ``module.`` (the reference restores into its DataParallel wrapper,
+    main.py:551), and the reference's dead ``rank_nl.*`` block filled with
+    the ``cls_nl.*`` values so that its strict load succeeds. The optimizer
+    slot is empty: the reference reads it only to resume training, which it
+    does not do from --test_load."""
+    if method != model.method:
+        raise ValueError(f"exporting a {model.method} model as {method}")
+    sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    if method in ("va", "vasa"):
+        for k in [k for k in sd if k.startswith("cls_nl.")]:
+            sd["rank_nl." + k[len("cls_nl."):]] = sd[k].clone()
+    # epoch and score are the JAX exporter's defaults (torch_export.py:120-122):
+    # no caller of either package sets them
+    torch.save({"epoch": 0, "state_dict": {"module." + k: v for k, v in sd.items()},
+                "score": 0.0, "optimizer": {}}, path)
 
 
 def _read_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:

@@ -37,15 +37,15 @@ from typing import Callable, Optional
 _DTYPES = ("float32", "bfloat16")
 
 
-def main(argv=None, on_ready: Optional[Callable] = None) -> None:
-    """Run the server until interrupted or shut down. ``on_ready(server)``,
-    if given, is called with the bound ThreadingHTTPServer before it starts
-    serving (its ``server_address`` holds the port when ``--port 0``)."""
+def parse_args(argv=None) -> argparse.Namespace:
+    """The server's flags (those of ``python -m vqwild_tpu.serve`` plus
+    ``--device`` and ``--dtype``)."""
     p = argparse.ArgumentParser(description="ARV gallery query server (PyTorch)")
     p.add_argument("--index_dir", required=True,
                    help="gallery index directory holding feats.npy + meta.json")
     p.add_argument("--test_load", default="",
-                   help="reference-format checkpoint (.pth.tar) for the embed trunk")
+                   help="the embed trunk's weights: a checkpoint directory of the "
+                        "port's training or a reference-format .pth.tar")
     p.add_argument("--method", default="baseline", choices=["baseline", "va", "vasa"])
     p.add_argument("--meta_split", default="100_20_80")
     p.add_argument("--data_root", default="data")
@@ -73,7 +73,14 @@ def main(argv=None, on_ready: Optional[Callable] = None) -> None:
                    help="torch device; the server never falls back to the CPU")
     p.add_argument("--dtype", default="float32", choices=_DTYPES,
                    help="trunk compute dtype (float32 runs with TF32 off)")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
+
+
+def main(argv=None, on_ready: Optional[Callable] = None) -> None:
+    """Run the server until interrupted or shut down. ``on_ready(server)``,
+    if given, is called with the bound ThreadingHTTPServer before it starts
+    serving (its ``server_address`` holds the port when ``--port 0``)."""
+    args = parse_args(argv)
 
     if args.trunk_int8:
         raise NotImplementedError("--trunk_int8 is not yet ported")
@@ -199,27 +206,37 @@ def _build_index(args, embed_fn, device):
     return GalleryIndex(feats, meta, device=device)
 
 
+def _head_sizes(sd: dict) -> dict:
+    """The class count and word-embedding width of a checkpoint's state
+    dict, read off its weights: the server has no DB to size the heads
+    from."""
+    sizes = {"nclass": int(sd["fc.weight"].shape[0])}
+    if "word_adaptor.fc4.weight" in sd:
+        sizes["semantic_dim"] = int(sd["word_adaptor.fc4.weight"].shape[0])
+    return sizes
+
+
 def _build_embed_fn(args, device, dtype, log):
-    """The serving trunk with the feat_fn contract: f(y, uv) → [B, C, T]."""
-    from vqwild_tpu_torch.core.device import cpu_seeded
-    from vqwild_tpu_torch.models.convert import load_reference_checkpoint
-    from vqwild_tpu_torch.models.resnet_f2f import ResNet18F2F
+    """The serving trunk with the feat_fn contract: f(y, uv) → [B, C, T].
+    The ``--method`` model is built as the command line builds it (seeded
+    from manual_seed, so that an index built without a checkpoint matches a
+    later server's clip queries; torch's global generators are left as they
+    were), its heads sized by the checkpoint, and ``--test_load`` is loaded
+    into it: a checkpoint directory of the port's training or a reference
+    ``.pth.tar`` (apps/cli.load_variables). The checkpoint is read once."""
+    import dataclasses
+
+    from vqwild_tpu_torch.apps.cli import build_arv_model, checkpoint_state_dict, load_variables
     from vqwild_tpu_torch.retrieval.features import make_feat_fn
 
     cfg = _cfg(args)
+    sd = None
     if args.test_load:
-        trunk = load_reference_checkpoint(args.test_load, device=device)
-    else:
-        log.warning(
-            "no --test_load given: using RANDOMLY INITIALIZED weights "
-            "(fine for smoke tests, meaningless for real retrieval)"
-        )
-        # drawn from manual_seed, as the JAX server's init is, so that an
-        # index built without a checkpoint matches a later server's clip
-        # queries; torch's global generators are left as they were
-        with cpu_seeded(cfg.train.manual_seed):
-            trunk = ResNet18F2F().eval()
-    return make_feat_fn(trunk, wire="yuv420", dtype=dtype, bn_eps=cfg.model.bn_eps,
+        sd = checkpoint_state_dict(args.test_load)
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **_head_sizes(sd)))
+    model = load_variables(args.test_load, cfg.model.method, build_arv_model(cfg, device), sd=sd)
+    log.info("serving trunk: %s %s", cfg.model.method, args.test_load or "(seeded init)")
+    return make_feat_fn(model, wire="yuv420", dtype=dtype, bn_eps=cfg.model.bn_eps,
                         device=device)
 
 
