@@ -14,7 +14,8 @@ Phases, each printing one JSON line:
                 (128) evaluators, of the moment device engine (32 against
                 1,466,542 rows), of the training loop's validation (60
                 against 180) and of the command line's trimmed evaluation
-                (80 against 240), and at two ragged ones:
+                (80 against 240), of the int8 server's clip query (1
+                against 240), and at two ragged ones:
                 rtol 1e-5 / atol 1e-3 on N(0,1) data, and
                 top-30 rows identical on a gallery with planted,
                 well-separated neighbours (tie-free by construction). Each
@@ -59,6 +60,34 @@ Phases, each printing one JSON line:
                 over the same records: features equal to the index's
                 within 1e-5, metrics finite and in [0, 1], clips/s through
                 FeatureExtractor (host work included).
+  (f2) int8  — the int8 serving trunk (models/quant.py), right after eval,
+                on the eval phase's checkpoint and DB. "int8_iconv":
+                ``_iconv`` (im2col into ``torch._int_mm``) against
+                ``_iconv_plain`` (float64 conv), atol 0, at each of the
+                trunk's 11 convs at an embed batch's shapes (960 frames,
+                full-range int8), with the int8 GEMM (also with a row-major
+                [K, N] weight), the im2col (also byte-wise), the whole
+                ``_iconv`` and the fp32 cuDNN conv (TF32 off) timed and the
+                bound at the int8 dense peak (1,979 TOPS); "int8_layouts":
+                ``torch._int_mm`` over 405 shapes in both weight layouts.
+                Then, with the launch counters zeroed just before and read
+                just after: calibration of the first batch at full width
+                (seconds; K2 in the fp32 shadow), 16 batches of 30
+                smooth-plane clips (32 x 112x112, the recipe of
+                tests/test_quant.py) through the int8 trunk (clips/s by
+                CUDA events, peak memory); ``serve --trunk_int8`` builds a
+                240-record index (writing the calibration file of the
+                checkpoint's name), answers 8 sequential clip queries each
+                with its own record first (p50; K1 at (1, 240, 512)); a
+                second server loads that file (no K2 launch) and embeds
+                bit-equal. After the read: the fp32 (TF32 off) and bf16
+                folded trunks on the same batches and the cosine of int8
+                against fp32; the card's calibration maxima (rtol 1e-5) and
+                int8 embeddings from one calibration file (1e-5) against
+                the CPU's on 2 clips x 4 frames; one int8 embed batch under
+                torch.profiler (line "profile_int8": device ms by kernel
+                and by part of the graph, busy share, launches,
+                synchronising calls).
   (g) clip    — the untrimmed clip regime, with the launch counters zeroed
                 just before and read just after. A seeded moment DB is
                 written to a temp directory: 4,900 gallery videos (the size
@@ -191,7 +220,8 @@ Phases, each printing one JSON line:
                 validation, trimmed, clip and moment evaluations, which
                 main() holds to the shapes phase k1 timed.
   (l) kernels — one {"kernels": [...]} line; ``launches`` counts the serve,
-                eval, clip, moment, train, loop and cli phases together.
+                eval, int8, clip, moment, train, loop and cli phases
+                together.
 
 Then the card's name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -218,6 +248,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM, bf16 tensor cores, dense
 TF32_FLOPS = 495e12  # H100 SXM, TF32 tensor cores, dense
+INT8_OPS = 1979e12  # H100 SXM, int8 tensor cores, dense (NVIDIA's data sheet)
 
 # the smoke's gallery at a full query bucket and at one query (a sequential
 # request), a gallery four times the L2 cache, two ragged shapes, a rank
@@ -242,9 +273,12 @@ K1_LOOP_CHUNK = (60, 180, 512)
 K1_CLI_CHUNK = (80, 240, 512)
 K1_CLI_CLIP_CHUNK = (40, 180, 512)
 K1_CLI_MOMENT_CHUNK = (32, 600, 512)
+# the int8 server's sequential clip queries against its 240-row index
+# (phase_int8 checks the rows)
+K1_INT8_QUERY = (1, 240, 512)
 K1_SHAPES = [(16, 7670, 512), (16, 100000, 512), (1, 7670, 512), (5, 130, 512), (300, 1000, 64),
              K1_EVAL_CHUNK, K1_CLIP_CHUNK, K1_MOMENT_CHUNK, K1_MOMENT_DEVICE_CHUNK, K1_LOOP_CHUNK,
-             K1_CLI_CHUNK, K1_CLI_CLIP_CHUNK, K1_CLI_MOMENT_CHUNK]
+             K1_CLI_CHUNK, K1_CLI_CLIP_CHUNK, K1_CLI_MOMENT_CHUNK, K1_INT8_QUERY]
 # galleries that cannot sit in L2: their times are held to their bounds
 K1_BEYOND_L2 = ((16, 100000, 512), K1_CLIP_CHUNK, K1_MOMENT_CHUNK, K1_MOMENT_DEVICE_CHUNK)
 # an embed batch (30 clips x 32 frames) in both types, a clip query in fp32
@@ -256,6 +290,14 @@ EMBED_BATCHES, CLIPS, FRAMES, CROP = 16, 30, 32, 112
 EVAL_LABELS, EVAL_PER_LABEL, EVAL_QUERIES_PER_LABEL, EVAL_DISTRACTORS = 100, 72, 18, 470
 EVAL_REAL_RECORDS = 1920  # 64 embed batches; no cut from the size asked for
 EVAL_METRIC_TOL = 1e-3
+# the int8 phase: the card's int8 embeddings against the CPU's from one
+# calibration file (tests/test_torch_quant.py CARD_EMBED_ATOL) and its
+# calibration maxima (rtol) on 2 clips x 4 frames; the int8 server's index
+# of 240 records of the eval phase's DB (8 embed batches), 8 clip queries
+INT8_CARD_EMBED_ATOL = 1e-5
+INT8_CALIB_RTOL = 1e-5
+INT8_REF_CLIPS, INT8_REF_FRAMES = 2, 4
+INT8_GALLERY, INT8_CLIP_QUERIES = K1_INT8_QUERY[1], 8
 # the clip phase's moment DB: ActivityNet v1.3 validation has 4,926 videos;
 # 1,800 queries over 100 labels; the synthetic store's 64 frames a video
 # make 2 chunks each, so 64 videos give 128 chunks (5 embed batches)
@@ -948,7 +990,418 @@ def phase_eval(dev, workdir, ckpt, *, labels, per_label, queries_per_label, dist
                 or real_launches["sq_l2"] != real_chunks):
             raise AssertionError(f"eval_real launches: build {build_launches}, evaluator "
                                  f"{real_launches}; {n_batches} batches, {real_chunks} chunks")
-    return {"launches": launches}
+    return {"launches": launches, "spec": spec_path}
+
+
+def int8_conv_shapes(n, crop):
+    """Every conv of the trunk at an embed batch of ``n`` frames: (name,
+    NHWC input, HWIO kernel, strides, padding), the stem 4x4/1 on the s2d
+    feed, then each stage's 3x3/2 (or /1), 3x3/1 and 1x1/2 downsample."""
+    from vqwild_tpu_torch.models.quant import STEM_CONV
+
+    pad1, pad0 = ((1, 1), (1, 1)), ((0, 0), (0, 0))
+    out = [("stem_4x4s1", (n, crop // 2, crop // 2, 6), (4, 4, 6, 64)) + STEM_CONV]
+    hw, cin = crop // 4, 64
+    for li, planes in ((1, 64), (2, 128), (3, 256), (4, 512)):
+        if li == 1:
+            out.append(("layer1_3x3s1", (n, hw, hw, 64), (3, 3, 64, 64), (1, 1), pad1))
+            continue
+        out.append((f"layer{li}_3x3s2", (n, hw, hw, cin), (3, 3, cin, planes), (2, 2), pad1))
+        out.append((f"layer{li}_1x1s2", (n, hw, hw, cin), (1, 1, cin, planes), (2, 2), pad0))
+        hw = (hw - 1) // 2 + 1
+        out.append((f"layer{li}_3x3s1", (n, hw, hw, planes), (3, 3, planes, planes), (1, 1), pad1))
+        cin = planes
+    return out
+
+
+def im2col_bytewise(x, kh, kw, strides, padding):
+    """``quant._im2col`` moving the channels byte by byte (its first form,
+    timed beside it)."""
+    import torch.nn.functional as F
+
+    (ph0, ph1), (pw0, pw1) = padding
+    cols = F.pad(x, (0, 0, pw0, pw1, ph0, ph1)).unfold(1, kh, strides[0]).unfold(2, kw, strides[1])
+    n, ho, wo, c = cols.shape[:4]
+    return cols.permute(0, 1, 2, 4, 5, 3).reshape(n, ho, wo, kh * kw * c).contiguous()
+
+
+def int_mm_layouts(dev):
+    """``torch._int_mm`` over 405 shapes (M 17-4,097, K 16-4,608, N 16-512)
+    with the weight as a row-major [K, N] matrix and as the transpose of a
+    contiguous [N, K] one (``quant._int_mm``'s layout): the shapes cuBLASLt
+    refuses, or gets wrong, in each."""
+    import itertools
+
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    bad = {"row_major_kn": [], "transposed_nk": []}
+    for m, k, n in itertools.product([17, 24, 32, 48, 64, 100, 128, 512, 4097],
+                                     [16, 32, 64, 96, 128, 576, 1152, 2304, 4608],
+                                     [16, 64, 128, 256, 512]):
+        a = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        w = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
+        want = (a.double() @ w.double()).to(torch.int32)
+        for name, b in (("row_major_kn", w), ("transposed_nk", w.t().contiguous().t())):
+            try:
+                if not torch.equal(torch._int_mm(a, b), want):
+                    bad[name].append([m, k, n, "wrong"])
+            except RuntimeError as e:
+                bad[name].append([m, k, n, str(e).split(" when")[0][:48]])
+    if bad["transposed_nk"]:
+        raise AssertionError(f"_int_mm refused or got wrong, in the port's layout: "
+                             f"{bad['transposed_nk'][:4]}")
+    return {"phase": "int8_layouts", "shapes": 405,
+            "refused_or_wrong": {k: len(v) for k, v in bad.items()},
+            "first": {k: v[:4] for k, v in bad.items()}}
+
+
+def iconv_check(dev, shapes):
+    """``_iconv`` against ``_iconv_plain`` (atol 0) at each conv of the
+    trunk, full-range int8 inputs; on the card the int8 GEMM (and with a
+    row-major [K, N] weight, where cuBLASLt takes it), the im2col copy (and
+    its byte-wise form), the whole ``_iconv`` and the fp32 cuDNN conv of the
+    same geometry (TF32 off) timed, and the bound at the int8 dense peak."""
+    import torch
+    import torch.nn.functional as F
+
+    from vqwild_tpu_torch.models import quant
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows = []
+    for name, xs, ks, strides, padding in shapes:
+        x = torch.randint(-127, 128, xs, generator=gen, device=dev, dtype=torch.int8)
+        k = torch.randint(-127, 128, ks, generator=gen, device=dev, dtype=torch.int8)
+        got = quant._iconv(x, k, strides, padding)
+        want = quant._iconv_plain(x, k, strides, padding)
+        if got.dtype != torch.int32 or not torch.equal(got, want):
+            raise AssertionError(f"_iconv {name}: max err {(got - want).abs().max().item()}")
+        n, h, w, c = xs
+        kh, kw, _, o = ks
+        m = got.numel() // o
+        kdim = kh * kw * c
+        row = {"conv": name, "input": list(xs), "kernel": list(ks), "gemm_mnk": [m, o, kdim],
+               "max_abs_err": 0}
+        if dev.type == "cuda":
+            cols = quant._im2col(x, kh, kw, strides, padding).view(m, kdim)
+            wrows = quant._kernel_rows(k)
+            wkn = k.reshape(kdim, o)
+            if not torch.equal(im2col_bytewise(x, kh, kw, strides, padding).view(m, kdim), cols):
+                raise AssertionError(f"the two im2col forms differ at {name}")
+            (ph0, ph1), (pw0, pw1) = padding
+            xf = x.float().permute(0, 3, 1, 2)  # channels_last view
+            wf = k.float().permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            try:
+                kn_ms = time_ms(lambda: torch._int_mm(cols, wkn))
+            except RuntimeError as e:
+                kn_ms = "refused: " + str(e).split(" when")[0][:48]
+            row.update(
+                gemm_ms=time_ms(lambda: quant._int_mm(cols, wrows)), gemm_row_major_kn_ms=kn_ms,
+                im2col_ms=time_ms(lambda: quant._im2col(x, kh, kw, strides, padding)),
+                im2col_bytewise_ms=time_ms(lambda: im2col_bytewise(x, kh, kw, strides, padding)),
+                iconv_ms=time_ms(lambda: quant._iconv(x, k, strides, padding, wrows)),
+                cudnn_fp32_ms=time_ms(lambda: F.conv2d(F.pad(xf, (pw0, pw1, ph0, ph1)), wf,
+                                                       stride=strides)))
+            row["gemm_bound_ms"], row["gemm_bound_by"] = bound(
+                m * kdim + kdim * o + 4 * m * o, 2.0 * m * kdim * o, INT8_OPS)
+            row["iconv_bound_ms"], row["iconv_bound_by"] = bound(
+                n * h * w * c + kdim * o + 4 * m * o, 2.0 * m * kdim * o, INT8_OPS)
+        rows.append(row)
+        del x, k, got, want
+    return rows
+
+
+def smooth_planes_torch(gen, b, t, size, dev):
+    """Low-frequency uint8 planes made on ``dev``: the recipe of
+    tests/test_quant.py::_smooth_planes (normal draws on a 4x coarser grid,
+    127 + 60 tanh luma, 128 + 30 tanh chroma)."""
+    import torch
+
+    base = torch.randn(b, t, size // 4, size // 4, generator=gen, device=dev)
+    y = base.repeat_interleave(4, -2).repeat_interleave(4, -1)
+    y = (127 + 60 * torch.tanh(y)).clamp(0, 255).to(torch.uint8)
+    uvb = torch.randn(b, t, size // 8, size // 8, 2, generator=gen, device=dev)
+    uv = uvb.repeat_interleave(4, -3).repeat_interleave(4, -2)
+    uv = (128 + 30 * torch.tanh(uv)).clamp(0, 255).to(torch.uint8)
+    return y, uv
+
+
+# the int8 graph's aten ops (the outermost op of each kernel launch) by part
+INT8_OP_GROUPS = {
+    "int8_gemm": ("aten::_int_mm",),
+    "im2col_and_pad_copies": ("aten::pad", "aten::constant_pad_nd", "aten::reshape",
+                              "aten::contiguous", "aten::clone"),
+    "epilogue_elementwise": ("aten::mul", "aten::add", "aten::add_", "aten::round_",
+                             "aten::clamp_", "aten::to", "aten::_to_copy", "aten::div",
+                             "aten::round", "aten::clamp", "aten::sub", "aten::cat",
+                             "aten::mean", "aten::linalg_vector_norm", "aten::clamp_min"),
+    "pools": ("aten::maximum",),
+}
+
+
+def profile_int8(embed, y, uv):
+    """One int8 embed batch under torch.profiler: device ms by kernel and
+    by part of the graph (each kernel's time charged to its outermost aten
+    op: the int8 GEMMs, the im2col and pad copies, the epilogue's
+    elementwise passes, the pools), the busy share of the call's wall time,
+    kernel launches and synchronising runtime calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        warm = torch.zeros(1, device="cuda")  # the tracer loses its first kernels
+        for _ in range(16):
+            warm.add_(1.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        embed(y, uv)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_ms_by_kernel(prof)
+    device_ms = sum(kernels.values())  # the 16 warm-up adds included (~0.03 ms)
+    parts = {g: 0.0 for g in INT8_OP_GROUPS}
+    parts["other"] = 0.0
+    for e in prof.events():
+        if not str(e.device_type).endswith("CPU") or e.self_device_time_total <= 0:
+            continue
+        top = e
+        while top.cpu_parent is not None and top.cpu_parent.name.startswith("aten::"):
+            top = top.cpu_parent
+        part = next((g for g, names in INT8_OP_GROUPS.items() if top.name in names), "other")
+        parts[part] += e.self_device_time_total / 1e3
+    calls = {e.key: e.count for e in prof.key_averages()
+             if "Launch" in e.key or "Synchronize" in e.key or e.key.startswith("cudaMemcpy")}
+    top_k = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    return {"phase": "profile_int8", "what": "one int8 embed batch (30 clips x 32 frames)",
+            "wall_ms": wall_ms, "device_ms": device_ms if kernels else "not traced",
+            "device_busy_share": device_ms / wall_ms if kernels else "not traced",
+            "parts_ms": parts,
+            "kernel_launches": sum(e.count for e in prof.key_averages()
+                                   if str(e.device_type).endswith("CUDA")),
+            "runtime_calls": calls, "top_kernels_ms": [[k[:90], v] for k, v in top_k]}
+
+
+def phase_int8(dev, workdir, ckpt, spec_path, *, batches, clips, frames, crop, ref_clips,
+               ref_frames, gallery, clip_queries):
+    """The int8 serving trunk (models/quant.py) on the card; see the module
+    docstring, (f2)."""
+    import torch
+
+    from vqwild_tpu_torch.apps.cli import checkpoint_state_dict
+    from vqwild_tpu_torch.data.clips import batch_cropped_clips, read_clip_raw
+    from vqwild_tpu_torch.data.frames import SyntheticFrameStore
+    from vqwild_tpu_torch.data.labels import get_split
+    from vqwild_tpu_torch.data.schema import load_trimmed_db
+    from vqwild_tpu_torch.models import quant
+    from vqwild_tpu_torch.models.fold import make_embed_fn
+    from vqwild_tpu_torch.ops import distance, stem_pool
+    from vqwild_tpu_torch.ops.preprocess import rgb_to_yuv420_host
+    from vqwild_tpu_torch.serve.__main__ import main as serve_main
+
+    def counts():
+        return {"sq_l2": distance.launches.n, "stem_s2d_pool": stem_pool.launches.n}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    sd = checkpoint_state_dict(ckpt)
+
+    # (1) _iconv against _iconv_plain at every conv of the trunk, timed; the
+    # int8 GEMM's operand layouts over 405 shapes (neither launches K1/K2)
+    for r in iconv_check(dev, int8_conv_shapes(clips * frames, crop)):
+        emit({"phase": "int8_iconv", **r})
+    if dev.type == "cuda":
+        emit(int_mm_layouts(dev))
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    ys, uvs = zip(*(smooth_planes_torch(gen, clips, frames, crop, dev) for _ in range(batches)))
+
+    def rate(f):
+        """clips/s of ``batches`` batches by CUDA events, after a warm-up
+        batch (cuDNN's algorithm choice, the allocator); the embeddings."""
+        f(ys[0], uvs[0])
+        sync()
+        if dev.type != "cuda":
+            return None, [f(ys[i], uvs[i]) for i in range(batches)]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = [f(ys[i], uvs[i]) for i in range(batches)]
+        end.record()
+        end.synchronize()
+        return batches * clips / (start.elapsed_time(end) / 1e3), out
+
+    distance.launches.reset()
+    stem_pool.launches.reset()
+    # ---- the int8 path, from here to the counter read below ----
+    t_phase = time.perf_counter()
+    # (2) calibration of the first batch at full width (K2 in the shadow),
+    # then the int8 trunk's throughput and peak memory
+    sync()
+    t0 = time.perf_counter()
+    calib = quant.calibrate_trunk(sd, ys[0], uvs[0], device=dev)
+    sync()
+    calib_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f_int8 = quant.make_int8_embed_fn(sd, None, calib=calib, device=dev)
+    sync()
+    quantize_s = time.perf_counter() - t0
+    peak_gb = None
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+        base_mem = torch.cuda.memory_allocated(dev)
+    int8_rate, e8 = rate(f_int8)
+    if dev.type == "cuda":
+        peak_gb = (torch.cuda.max_memory_allocated(dev) - base_mem) / 1e9
+
+    # (3) the server: --trunk_int8 builds an index from the eval phase's DB,
+    # writes the calibration beside the checkpoint, answers clip queries (K1
+    # at (1, gallery, 512)); a second server loads the file and embeds
+    # bit-equal
+    calib_path = quant.calibration_path(ckpt)
+    fp = quant.checkpoint_fingerprint(ckpt)
+    if os.path.exists(calib_path) or calib_path != f"{os.path.abspath(ckpt)}.int8_calib-{fp}.json":
+        raise AssertionError(f"calibration path {calib_path} (exists before the build?)")
+    spec = get_split(spec_path)
+    records = load_trimmed_db(spec.db_json).flat("testing")[:gallery]
+    store = SyntheticFrameStore()
+
+    def clip_planes(rec):
+        raw = read_clip_raw(store, rec, frames, fps=3, rng=None, crop_size=crop)
+        y, uv = rgb_to_yuv420_host(batch_cropped_clips([raw]))
+        return y[0], uv[0]
+
+    def serve(index):
+        ready, holder = threading.Event(), {}
+
+        def on_ready(server):
+            holder["server"] = server
+            ready.set()
+
+        def run():
+            try:
+                serve_main(argv, on_ready)
+            except BaseException as e:  # re-raised below, in the caller's thread
+                holder["error"] = e
+                ready.set()
+
+        argv = ["--index_dir", os.path.join(workdir, index), "--test_load", ckpt,
+                "--trunk_int8", "--port", "0", "--device", str(dev), "--max_wait_ms", "5",
+                "--meta_split", spec_path, "--frame_store", "synthetic",
+                "--eval_split", "testing", "--max_gallery", str(gallery),
+                "--input_size", str(crop), "--test_frame", str(frames),
+                "--test_batch_size", str(clips)]
+        t0 = time.perf_counter()
+        thread = threading.Thread(target=run, daemon=True)
+        thread.start()
+        if not ready.wait(timeout=600):
+            raise TimeoutError("the int8 server did not build its index")
+        if "error" in holder:
+            raise holder["error"]
+        return holder["server"], thread, time.perf_counter() - t0
+
+    def query(server, rows):
+        out = []
+        for r in rows:
+            buf = io.BytesIO()
+            y, uv = clip_planes(records[r])
+            np.savez(buf, y=y, uv=uv)
+            body, ms = post(f"http://127.0.0.1:{server.server_address[1]}/query/clip?k=5",
+                            buf.getvalue())
+            top = body["results"][0]
+            if top["video_id"] != records[r].video_id or top["rank"] != 0:
+                raise AssertionError(f"int8 clip query for record {r} answered {top}")
+            out.append((ms, top["score"]))
+        return out
+
+    server, thread, build_s = serve("int8_index")
+    try:
+        if not os.path.exists(calib_path):
+            raise AssertionError(f"the first int8 build wrote no {calib_path}")
+        feats = np.load(os.path.join(workdir, "int8_index", "feats.npy"))
+        f64 = feats.astype(np.float64)
+        sq = (f64 * f64).sum(1)
+        dist = sq[:, None] + sq[None, :] - 2.0 * f64 @ f64.T
+        np.fill_diagonal(dist, np.inf)
+        # the rows farthest from their nearest neighbour: each must come back
+        # first for its own clip
+        rows = [int(r) for r in np.argsort(-dist.min(1), kind="stable")[:clip_queries]]
+        query(server, rows[:1])  # warm-up: the first clip shape
+        first = query(server, rows)
+    finally:
+        server.shutdown()
+        thread.join(timeout=60)
+    calib_mtime = os.stat(calib_path).st_mtime_ns
+    before = counts()
+    server, thread, build2_s = serve("int8_index2")
+    try:
+        second = query(server, rows)
+    finally:
+        server.shutdown()
+        thread.join(timeout=60)
+    sync()
+    second_k2 = counts()["stem_s2d_pool"] - before["stem_s2d_pool"]
+    feats2 = np.load(os.path.join(workdir, "int8_index2", "feats.npy"))
+    if (not np.array_equal(feats, feats2) or [s for _, s in first] != [s for _, s in second]
+            or os.stat(calib_path).st_mtime_ns != calib_mtime or second_k2 != 0):
+        raise AssertionError("the second int8 server did not embed bit-equal from the "
+                             f"calibration file (K2 launches {second_k2})")
+    launches = counts()
+    phase_s = time.perf_counter() - t_phase
+    # ---- end of the int8 path ----
+
+    # (4) beside it: the fp32 (TF32 off) and bf16 folded trunks on the same
+    # batches, and the cosine of int8 against fp32 frame embeddings
+    fp32_rate, e32 = rate(make_embed_fn(sd, dtype=torch.float32, stem_mode="yuv_s2d",
+                                        device=dev))
+    bf16_rate, _ = rate(make_embed_fn(sd, dtype=torch.bfloat16, stem_mode="yuv_s2d",
+                                      device=dev))
+    cos = torch.cat([(a * b).sum(dim=1).flatten() for a, b in zip(e8, e32)])
+    norms = torch.cat([a.norm(dim=1).flatten() for a in e8])
+    if not (torch.isfinite(cos).all() and (norms - 1).abs().max() < 1e-4):
+        raise AssertionError("int8 embeddings are not finite unit vectors")
+    del e8, e32
+
+    # (5) the card against the CPU on a small input: calibration maxima, and
+    # the int8 embeddings from one calibration file
+    ry, ruv = (a[:ref_clips, :ref_frames].cpu().numpy() for a in (ys[0], uvs[0]))
+    card_small = quant.calibrate_trunk(sd, ry, ruv, device=dev)
+    cpu_small = quant.calibrate_trunk(sd, ry, ruv, device="cpu")
+    calib_err = max(abs(card_small[k] - v) / abs(v) for k, v in cpu_small.items())
+    if set(card_small) != set(cpu_small) or not calib_err <= INT8_CALIB_RTOL:
+        raise AssertionError(f"card calibration differs from the CPU's by {calib_err} (rel)")
+    calib_file = os.path.join(workdir, "int8_small_calib.json")
+    quant.save_calibration(calib_file, cpu_small)
+    got, want = (quant.make_int8_embed_fn(sd, None, calib=quant.load_calibration(calib_file),
+                                          device=d)(torch.from_numpy(ry).to(d),
+                                                    torch.from_numpy(ruv).to(d)).cpu()
+                 for d in (dev, torch.device("cpu")))
+    ref_err = float((got - want).abs().max())
+    if not ref_err <= INT8_CARD_EMBED_ATOL:
+        raise AssertionError(f"card int8 embeddings differ from the CPU's by {ref_err}")
+
+    if dev.type == "cuda":
+        emit(profile_int8(f_int8, ys[0], uvs[0]))
+    row = {"phase": "int8", "clips_per_batch": clips, "frames": frames, "crop": crop,
+           "embed_batches": batches, "int8_clips_per_s": int8_rate,
+           "fp32_clips_per_s": fp32_rate, "bf16_clips_per_s": bf16_rate,
+           "int8_peak_gb_above_inputs": peak_gb,
+           "cos_int8_vs_fp32_min": float(cos.min()), "cos_int8_vs_fp32_mean": float(cos.mean()),
+           "calibrate_s": calib_s, "quantize_s": quantize_s,
+           "calib_max_rel_err_vs_cpu": calib_err, "calib_tol": INT8_CALIB_RTOL,
+           "ref_max_abs_err": ref_err, "ref_tol": INT8_CARD_EMBED_ATOL,
+           "ref_input": [ref_clips, ref_frames, crop, crop],
+           "server_gallery": len(feats), "server_build_s": [build_s, build2_s],
+           "calibration_file": os.path.basename(calib_path),
+           "clip_query_p50_ms_sequential": float(np.median([ms for ms, _ in first])),
+           "clip_query_p50_ms_second_server": float(np.median([ms for ms, _ in second])),
+           "self_query_rank0": True, "second_server_bit_equal": True, "path_s": phase_s,
+           "launches": launches}
+    emit(row)
+    if dev.type == "cuda" and min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the int8 path never launched: {launches}")
+    return row
 
 
 def write_moment_db(workdir, *, videos, queries, labels, seed):
@@ -2799,6 +3252,10 @@ def main() -> int:
                            queries_per_label=EVAL_QUERIES_PER_LABEL,
                            distractors=EVAL_DISTRACTORS, real_records=EVAL_REAL_RECORDS,
                            clips=CLIPS, frames=FRAMES, crop=CROP)
+        int8 = phase_int8(dev, workdir, os.path.join(workdir, "best.pth.tar"), evald["spec"],
+                          batches=EMBED_BATCHES, clips=CLIPS, frames=FRAMES, crop=CROP,
+                          ref_clips=INT8_REF_CLIPS, ref_frames=INT8_REF_FRAMES,
+                          gallery=INT8_GALLERY, clip_queries=INT8_CLIP_QUERIES)
         clip = phase_clip(dev, workdir, os.path.join(workdir, "best.pth.tar"),
                           videos=CLIP_VIDEOS, queries=CLIP_QUERIES, labels=CLIP_LABELS,
                           real_videos=CLIP_REAL_VIDEOS, clips=CLIPS, frames=FRAMES, crop=CROP,
@@ -2811,6 +3268,9 @@ def main() -> int:
     if moment["windows"] != K1_MOMENT_CHUNK[1] or K1_MOMENT_DEVICE_CHUNK[1] != K1_MOMENT_CHUNK[1]:
         raise AssertionError(f"the moment gallery has {moment['windows']} windows; K1 was timed "
                              f"at {K1_MOMENT_CHUNK} and {K1_MOMENT_DEVICE_CHUNK}")
+    if int8["server_gallery"] != K1_INT8_QUERY[1]:
+        raise AssertionError(f"the int8 server's index has {int8['server_gallery']} rows; K1 "
+                             f"was timed at {K1_INT8_QUERY}")
     if loop["k1_chunk"] != K1_LOOP_CHUNK:
         raise AssertionError(f"the loop's validation ran K1 at {loop['k1_chunk']}; K1 was timed "
                              f"at {K1_LOOP_CHUNK}")
@@ -2829,10 +3289,11 @@ def main() -> int:
     k1_cli = next(r for r in k1 if tuple(r["shape"]) == K1_CLI_CHUNK)
     k1_cli_clip = next(r for r in k1 if tuple(r["shape"]) == K1_CLI_CLIP_CHUNK)
     k1_cli_moment = next(r for r in k1 if tuple(r["shape"]) == K1_CLI_MOMENT_CHUNK)
+    k1_int8 = next(r for r in k1 if tuple(r["shape"]) == K1_INT8_QUERY)
     k2_main = k2[0]  # an embed batch in fp32, the serving dtype
-    paths = {"serve": serve["launches"], "eval": evald["launches"], "clip": clip["launches"],
-             "moment": moment["launches"], "train": train["launches"],
-             "loop": loop["launches"], "cli": cli["launches"]}
+    paths = {"serve": serve["launches"], "eval": evald["launches"], "int8": int8["launches"],
+             "clip": clip["launches"], "moment": moment["launches"],
+             "train": train["launches"], "loop": loop["launches"], "cli": cli["launches"]}
     launches = {k: sum(p[k] for p in paths.values()) for k in serve["launches"]}
     chunk_keys = ("shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
@@ -2852,6 +3313,7 @@ def main() -> int:
          "cli_chunk": {k: k1_cli[k] for k in chunk_keys},
          "cli_clip_chunk": {k: k1_cli_clip[k] for k in chunk_keys},
          "cli_moment_chunk": {k: k1_cli_moment[k] for k in chunk_keys},
+         "int8_query": {k: k1_int8[k] for k in chunk_keys},
          "cli_launches_by_regime": cli["k1_launches"]},
         {"name": "stem_s2d_pool", "route": "cuda", "source": "vqwild_tpu_torch/csrc/stem_pool.cu",
          "replaces": "vqwild_tpu/ops/pallas_kernels.py:152",

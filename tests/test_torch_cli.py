@@ -345,10 +345,14 @@ class TestLoadVariables:
 
 
 class TestErrors:
-    def test_int8_raises(self, tiny_arv, spec):
+    def test_int8_requires_yuv420(self, tiny_arv, spec, tmp_path):
+        """The int8 trunk takes the yuv420 wire only: on rgb both flags raise
+        the JAX make_feat_fn's ValueError (tests/test_torch_quant_cli.py
+        evaluates through it)."""
         for flag in ("--trunk_int8", "--trunk_int8_const"):
-            with pytest.raises(NotImplementedError, match="not yet ported"):
-                cli.main(tiny(tiny_arv, spec, flag, "--evaluate", "--wire", "yuv420"))
+            with pytest.raises(ValueError, match="requires wire='yuv420'"):
+                cli.main(tiny(tiny_arv, spec, flag, "--evaluate", "--wire", "rgb",
+                              "--run_dir", str(tmp_path / flag)))
 
     def test_cuda_raises_without_gpu(self, tiny_arv, spec, tmp_path):
         if torch.cuda.is_available():

@@ -151,7 +151,7 @@ def test_server_from_the_directory_equals_the_export(cycle):
         return SimpleNamespace(test_load=test_load, method="va", meta_split=cycle.spec,
                                data_root=cycle.root, frames_dir="", input_size=32, test_frame=2,
                                test_batch_size=4, frame_store="synthetic",
-                               eval_split="testing")
+                               eval_split="testing", trunk_int8=False)
 
     rng = np.random.default_rng(11)
     y, uv = rgb_to_yuv420_host(rng.integers(0, 256, (3, 2, 32, 32, 3), dtype=np.uint8))

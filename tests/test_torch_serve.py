@@ -258,13 +258,56 @@ class TestServerEntryPoint:
             thread.join(timeout=30)
         assert not thread.is_alive()
 
-    @pytest.mark.parametrize("extra,exc", [
-        (["--trunk_int8"], NotImplementedError),
-    ])
-    def test_unported_options_raise(self, tmp_path, extra, exc):
-        _index(n=4)[0].save(str(tmp_path / "idx"))
-        with pytest.raises(exc, match="not yet ported"):
-            serve_main(["--index_dir", str(tmp_path / "idx"), "--device", "cpu"] + extra)
+    def test_int8_trunk_builds_serves_and_reloads_its_calibration(self, tiny_arv, tmp_path,
+                                                                   monkeypatch):
+        """--trunk_int8 with no index on disk: the first build calibrates on
+        its first batch and writes the calibration under the JAX package's
+        name for the checkpoint, serves the index (a row's own feature
+        first); a second build on the same checkpoint loads the file,
+        calibrates nothing, and embeds bit-equal."""
+        from vqwild_tpu.models.quant import calibration_path as jax_calibration_path
+        from vqwild_tpu_torch.models import quant
+
+        ckpt = str(tmp_path / "best.pth.tar")
+        torch_export.save_reference_checkpoint(
+            ckpt, full_model_variables(random_trunk_variables(seed=9)), "baseline")
+        spec_path = write_split_spec(tiny_arv, tmp_path / "spec.json")
+        calib = jax_calibration_path(ckpt)
+        assert not Path(calib).exists()
+
+        def argv(index):
+            return ["--index_dir", str(tmp_path / index), "--test_load", ckpt, "--trunk_int8",
+                    "--port", "0", "--device", "cpu", "--max_wait_ms", "1",
+                    "--meta_split", spec_path, "--frame_store", "synthetic",
+                    "--eval_split", "testing", "--max_gallery", "8", "--input_size", "32",
+                    "--test_frame", "2", "--test_batch_size", "4"]
+
+        srv, thread = _serve_in_thread(argv("idx"))
+        try:
+            feats = np.load(tmp_path / "idx" / "feats.npy")
+            meta = json.loads((tmp_path / "idx" / "meta.json").read_text())
+            base = f"http://127.0.0.1:{srv.server_address[1]}"
+            res = _post(f"{base}/query/features",
+                        json.dumps({"feature": feats[5].tolist(), "k": 3}).encode())["results"]
+            assert res[0]["video_id"] == meta[5]["video_id"] and res[0]["rank"] == 0
+        finally:
+            srv.shutdown()
+            thread.join(timeout=30)
+        assert not thread.is_alive()
+        assert feats.shape == (8, 512) and np.isfinite(feats).all()
+        written = quant.load_calibration(calib)
+        assert quant.calibration_path(ckpt) == calib and len(written) == 17
+
+        def no_calibration(*a, **kw):
+            raise AssertionError("calibrated although the checkpoint's file exists")
+
+        monkeypatch.setattr(quant, "calibrate_trunk", no_calibration)
+        srv, thread = _serve_in_thread(argv("idx2"))
+        srv.shutdown()
+        thread.join(timeout=30)
+        assert not thread.is_alive()
+        np.testing.assert_array_equal(np.load(tmp_path / "idx2" / "feats.npy"), feats)
+        assert quant.load_calibration(calib) == written
 
     @pytest.mark.parametrize("extra", [["--regime", "moment"],
                                        ["--regime", "moment", "--no_embed"]])
@@ -300,7 +343,7 @@ class TestServerEntryPoint:
         args = SimpleNamespace(test_load="", meta_split="100_20_80", data_root="data",
                                frames_dir="", input_size=32, test_frame=2, test_batch_size=4,
                                frame_store="synthetic", method="baseline",
-                               eval_split="testing")
+                               eval_split="testing", trunk_int8=False)
         rng = np.random.default_rng(8)
         y, uv = rgb_to_yuv420_host(rng.integers(0, 256, (2, 2, 32, 32, 3), dtype=np.uint8))
         rng_state = torch.random.get_rng_state()
@@ -338,7 +381,8 @@ class TestServerEntryPoint:
         args = SimpleNamespace(test_load=str(tmp_path / "ckpt" / "best"), method=method,
                                meta_split=spec, data_root=tiny_arv["root"], frames_dir="",
                                input_size=32, test_frame=2, test_batch_size=4,
-                               frame_store="synthetic", eval_split="testing")
+                               frame_store="synthetic", eval_split="testing",
+                               trunk_int8=False)
         rng = np.random.default_rng(4)
         y, uv = rgb_to_yuv420_host(rng.integers(0, 256, (2, 2, 32, 32, 3), dtype=np.uint8))
         got = _build_embed_fn(args, torch.device("cpu"), torch.float32, get_logger("test"))(y, uv)

@@ -6,6 +6,8 @@ Training:
   python -m vqwild_tpu_torch --method vasa --meta_split 100_20_80
 Evaluation (all three regimes):
   python -m vqwild_tpu_torch --evaluate --eval_all --test_load <ckpt> --method vasa
+Evaluation through the int8 trunk (calibration beside the checkpoint):
+  python -m vqwild_tpu_torch --evaluate --eval_all --wire yuv420 --trunk_int8 --test_load <ckpt>
 Export a checkpoint as a reference best.pth.tar:
   python -m vqwild_tpu_torch --test_load <ckpt> --export_torch best.pth.tar
 Fake-feature smoke of the whole retrieval stack (no trained model needed):
@@ -15,11 +17,13 @@ The flags, their spellings, aliases and defaults are the JAX command
 line's, plus ``--device`` (default ``cuda``; ``cpu`` must be asked for, and
 nothing falls back from one to the other). ``--test_load`` takes a
 checkpoint directory the port's training wrote (``<run>/checkpoints/best``)
-or a reference-format ``.pth.tar``. ``--trunk_int8`` and
-``--trunk_int8_const`` are parsed and raise: the int8 trunk is not ported
-yet. ``--stem_s2d`` is carried in the config and changes nothing (the
-port's trunk always trains through the 7x7 stem). One device only: the
-JAX package's mesh has no counterpart here yet.
+or a reference-format ``.pth.tar``. ``--trunk_int8`` (``--wire yuv420``
+only) extracts features through the int8 trunk, its calibration read from
+or written to ``models.quant.calibration_path(--test_load)``, the JAX
+package's file; ``--trunk_int8_const`` runs the same graph (eager PyTorch
+has no jit constants). ``--stem_s2d`` is carried in the config and changes
+nothing (the port's trunk always trains through the 7x7 stem). One device
+only: the JAX package's mesh has no counterpart here yet.
 """
 
 from __future__ import annotations
@@ -159,9 +163,12 @@ def parse(argv=None):
     p.add_argument("--wire", choices=["rgb", "yuv420"], default="rgb",
                    help="host→device wire format; yuv420 halves transfer bytes")
     p.add_argument("--trunk_int8", action="store_true",
-                   help="the int8 post-training-quantized trunk: not yet ported (raises)")
+                   help="extract features through the int8 post-training-quantized "
+                        "trunk (models/quant.py); requires --wire yuv420; calibrated on "
+                        "the first batch, or from the checkpoint's calibration file")
     p.add_argument("--trunk_int8_const", action="store_true",
-                   help="the int8 trunk with baked constants: not yet ported (raises)")
+                   help="the JAX command line's int8 trunk with baked constants: the "
+                        "same graph as --trunk_int8 here (eager PyTorch bakes nothing)")
     p.add_argument("--score_readback_dtype", choices=["float32", "bfloat16"],
                    default="float32",
                    help="moment eval: dtype of the device→host score "
@@ -417,13 +424,22 @@ def _extraction_mode_tag(cfg) -> str:
     return "-".join(parts)
 
 
-def _feat_fn(cfg, model, device):
+def _int8_calib_path(test_load: str) -> Optional[str]:
+    from vqwild_tpu_torch.models.quant import calibration_path
+
+    return calibration_path(test_load)
+
+
+def _feat_fn(cfg, model, device, calib_path: Optional[str] = None):
     """The eval embedding of ``model`` on ``cfg.eval.wire`` (make_feat_fn:
-    the BN-folded trunk; on yuv420 its stem runs as kernel K2)."""
+    the BN-folded trunk, on yuv420 with its stem as kernel K2; or, under
+    ``cfg.eval.trunk_quant``, the int8 trunk calibrated from ``calib_path``
+    or from its first batch)."""
     from vqwild_tpu_torch.retrieval.features import make_feat_fn
 
     return make_feat_fn(model, wire=cfg.eval.wire, dtype=getattr(torch, cfg.model.compute_dtype),
-                        bn_eps=cfg.model.bn_eps, device=device)
+                        bn_eps=cfg.model.bn_eps, quant=cfg.eval.trunk_quant,
+                        calib_path=calib_path, device=device)
 
 
 def run_evaluation(cfg, extra, run_dir: RunDir):
@@ -440,7 +456,7 @@ def run_evaluation(cfg, extra, run_dir: RunDir):
         feat_fn = make_fake_feat_fn(cfg.model.feat_dim)
     else:
         load_variables(extra.get("test_load", ""), cfg.model.method, model)
-        feat_fn = _feat_fn(cfg, model, device)
+        feat_fn = _feat_fn(cfg, model, device, _int8_calib_path(extra.get("test_load", "")))
     extractor = FeatureExtractor(
         feat_fn,
         store,
@@ -681,11 +697,6 @@ def run_export_torch(cfg, extra) -> None:
 
 def main(argv=None):
     cfg, extra = parse(argv)
-    if cfg.eval.trunk_quant:
-        raise NotImplementedError(
-            "--trunk_int8 / --trunk_int8_const: the int8 trunk (calibration and int8 "
-            "convs, vqwild_tpu/models/quant.py) is not yet ported; it is the int8 slice "
-            "(5) of ROADMAP.md")
     resolve_device(extra["device"])
     if cfg.model.compute_dtype == "float32":
         disable_tf32()

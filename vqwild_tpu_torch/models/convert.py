@@ -12,6 +12,8 @@ key names and weight shapes, so both paths end in one ``state_dict`` layout:
 (the transforms of vqwild_tpu/models/torch_export.py, kept here as a copy).
 ``save_reference_checkpoint`` writes a model back out as a reference
 ``best.pth.tar`` (vqwild_tpu/models/torch_export.py:72-132).
+``int8_params_from_jax`` carries the JAX package's int8 trunk parameters
+(its ``quantize_trunk`` tree) over to the port's int8 graph.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from vqwild_tpu_torch.core.device import resolve_device
 from vqwild_tpu_torch.models.arv import ARVModel
+from vqwild_tpu_torch.models.quant import int8_params
 from vqwild_tpu_torch.models.resnet_f2f import ResNet18F2F
 
 # top-level checkpoint entries that are heads, not trunk (baseline fc; va and
@@ -145,6 +148,21 @@ def jax_variables_from_arv(model: ARVModel) -> Dict[str, dict]:
     if model.method == "vasa":
         params["word_adaptor"] = {n: lin(f"word_adaptor.{n}") for n in ("fc", "fc2", "fc3", "fc4")}
     return out
+
+
+def int8_params_from_jax(qp: Mapping[str, Any],
+                         device: Union[str, torch.device] = "cpu") -> Dict[str, Any]:
+    """The JAX package's ``quantize_trunk`` tree (numpy or JAX arrays) →
+    the port's int8 parameters on ``device`` (``models.quant.int8_params``:
+    the same tree as tensors, int8 HWIO kernels, plus the stem's static
+    scales), for ``models.quant.int8_trunk_apply``."""
+
+    def host(node):
+        if isinstance(node, Mapping):
+            return {k: host(v) for k, v in node.items()}
+        return np.asarray(node)
+
+    return int8_params(host(qp), device)
 
 
 def trunk_from_state_dict(sd: Mapping[str, torch.Tensor]) -> ResNet18F2F:

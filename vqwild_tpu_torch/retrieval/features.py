@@ -1,9 +1,9 @@
 """Feature extraction for the server and the evaluators.
 
 Counterpart of vqwild_tpu/retrieval/features.py. ``make_feat_fn`` (the
-JAX function's folded and unfolded single-device branches) is the eval forward →
-per-frame embeddings L2-normalized over the channel dim → numpy [B, C, T],
-the reference's feat_func contract (main.py:220-233);
+JAX function's folded, unfolded and int8 single-device branches) is the
+eval forward → per-frame embeddings L2-normalized over the channel dim →
+numpy [B, C, T], the reference's feat_func contract (main.py:220-233);
 ``make_fake_feat_fn`` is the fake-feature backend (--memory_leak_debug,
 dataloader_baseline.py:721-724) that exercises the whole retrieval stack
 without a model.
@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import copy
 import os
+import threading
 from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
@@ -53,7 +54,8 @@ log = get_logger("retrieval.features")
 
 
 def make_feat_fn(trunk: ResNet18F2F, *, wire: str = "rgb", dtype=torch.float32,
-                 bn_eps: float = BN_EPS, folded: bool = True,
+                 bn_eps: float = BN_EPS, folded: bool = True, quant: Optional[str] = None,
+                 calib_path: Optional[str] = None,
                  device: Union[str, torch.device] = "cuda") -> Callable:
     """Returns f(clips [B,T,s,s,C] uint8-cropped or float) → np [B, C, T].
 
@@ -69,11 +71,23 @@ def make_feat_fn(trunk: ResNet18F2F, *, wire: str = "rgb", dtype=torch.float32,
     JAX function captures its variables) in its own compute dtype and BN
     epsilon, after ``ops/preprocess.normalize_clips`` or
     ``normalize_clips_yuv420``; the per-frame embeddings are L2-normalized
-    over C. ``dtype`` and ``bn_eps`` must then be the module's."""
+    over C. ``dtype`` and ``bn_eps`` must then be the module's.
+
+    ``quant="int8"`` (yuv420 wire only) serves the post-training-quantized
+    trunk (models/quant.py): the FIRST batch this fn sees calibrates an fp32
+    shadow of the folded trunk, then every batch, that one included, is
+    embedded through the int8 graph. An existing ``calib_path`` is loaded
+    instead of calibrating; otherwise the first batch's calibration is saved
+    there for the next process. ``"int8_const"`` runs the same graph (eager
+    PyTorch has no jit constants to bake the parameters into). ``folded``
+    and ``dtype`` are not read then."""
     if wire not in ("rgb", "yuv420"):
         raise ValueError(f"unknown wire format {wire!r}")
     dev = resolve_device(device)
-    if folded:
+    if quant is not None:
+        fwd = _int8_fwd(trunk, wire=wire, quant=quant, calib_path=calib_path, bn_eps=bn_eps,
+                        device=dev)
+    elif folded:
         fwd = make_embed_fn(trunk.state_dict(), dtype=dtype,
                             stem_mode="yuv_s2d" if wire == "yuv420" else "conv7",
                             bn_eps=bn_eps, device=dev)
@@ -99,6 +113,40 @@ def make_feat_fn(trunk: ResNet18F2F, *, wire: str = "rgb", dtype=torch.float32,
             return fwd(*tensors).cpu().numpy()
 
     return feat_fn
+
+
+def _int8_fwd(trunk, *, wire, quant, calib_path, bn_eps, device) -> Callable:
+    """f(y, uv) on ``device`` through the int8 trunk, calibrated from
+    ``calib_path`` now or from its first batch (once, under a lock: the
+    HTTP handler threads may make the first calls together)."""
+    if quant not in ("int8", "int8_const"):
+        raise ValueError(f"unknown quant mode {quant!r}")
+    if wire != "yuv420":
+        raise ValueError(f"quant={quant!r} requires wire='yuv420'")
+    from vqwild_tpu_torch.models import quant as quant_mod
+
+    # the weights as they are now, as the JAX function captures its variables
+    sd = {k: v.detach().to("cpu", copy=True) for k, v in trunk.state_dict().items()}
+    cell: dict = {}
+    cell_lock = threading.Lock()
+    if calib_path is not None and os.path.exists(calib_path):
+        cell["fn"] = quant_mod.make_int8_embed_fn(
+            sd, None, calib=quant_mod.load_calibration(calib_path), device=device,
+            bn_eps=bn_eps, const_params=quant == "int8_const")
+
+    def fwd(y, uv):
+        if "fn" not in cell:
+            with cell_lock:
+                if "fn" not in cell:
+                    calib = quant_mod.calibrate_trunk(sd, y, uv, bn_eps=bn_eps, device=device)
+                    if calib_path is not None:
+                        quant_mod.save_calibration(calib_path, calib)
+                    cell["fn"] = quant_mod.make_int8_embed_fn(
+                        sd, None, calib=calib, device=device, bn_eps=bn_eps,
+                        const_params=quant == "int8_const")
+        return cell["fn"](y, uv)
+
+    return fwd
 
 
 def make_fake_feat_fn(feat_dim: int = 512, seed: Optional[int] = None) -> Callable:

@@ -22,10 +22,16 @@ over HTTP.
   # holding windows.npz is a moment index, whatever --regime says
   python -m vqwild_tpu_torch.serve --index_dir gallery_index --no_embed --port 8080
 
+  # embed through the int8 post-training-quantized trunk: the first build
+  # calibrates on its first batch and writes <ckpt>.int8_calib-<fp>.json
+  # beside the checkpoint (the JAX server's file); later starts load it
+  python -m vqwild_tpu_torch.serve --trunk_int8 --index_dir gallery_index \
+      --test_load best.pth.tar --meta_split 100_20_80 --port 8080
+
 The flags are those of ``python -m vqwild_tpu.serve`` plus ``--device``
-(default ``cuda``; ``cpu`` must be asked for) and ``--dtype``. The index
-directory is the JAX server's format. ``--trunk_int8`` is not ported yet
-and raises.
+(default ``cuda``; ``cpu`` must be asked for) and ``--dtype`` (the float
+trunk's; the int8 trunk has none). The index directory is the JAX server's
+format.
 """
 
 from __future__ import annotations
@@ -81,9 +87,6 @@ def main(argv=None, on_ready: Optional[Callable] = None) -> None:
     if given, is called with the bound ThreadingHTTPServer before it starts
     serving (its ``server_address`` holds the port when ``--port 0``)."""
     args = parse_args(argv)
-
-    if args.trunk_int8:
-        raise NotImplementedError("--trunk_int8 is not yet ported")
 
     import torch
 
@@ -147,7 +150,8 @@ def _cfg(args):
         frame_store=args.frame_store,
     )
     model = ModelConfig(method=args.method)
-    ev = EvalConfig(eval_split=args.eval_split, wire="yuv420")
+    ev = EvalConfig(eval_split=args.eval_split, wire="yuv420",
+                    trunk_quant="int8" if args.trunk_int8 else None)
     return ExperimentConfig(data=data, model=model, train=TrainConfig(), eval=ev)
 
 
@@ -223,10 +227,14 @@ def _build_embed_fn(args, device, dtype, log):
     later server's clip queries; torch's global generators are left as they
     were), its heads sized by the checkpoint, and ``--test_load`` is loaded
     into it: a checkpoint directory of the port's training or a reference
-    ``.pth.tar`` (apps/cli.load_variables). The checkpoint is read once."""
+    ``.pth.tar`` (apps/cli.load_variables). The checkpoint is read once.
+    Under ``--trunk_int8`` it is the int8 trunk, its calibration read from
+    ``models.quant.calibration_path(--test_load)`` or, when that file is
+    absent, made from the first batch and written there."""
     import dataclasses
 
     from vqwild_tpu_torch.apps.cli import build_arv_model, checkpoint_state_dict, load_variables
+    from vqwild_tpu_torch.models.quant import calibration_path
     from vqwild_tpu_torch.retrieval.features import make_feat_fn
 
     cfg = _cfg(args)
@@ -237,6 +245,7 @@ def _build_embed_fn(args, device, dtype, log):
     model = load_variables(args.test_load, cfg.model.method, build_arv_model(cfg, device), sd=sd)
     log.info("serving trunk: %s %s", cfg.model.method, args.test_load or "(seeded init)")
     return make_feat_fn(model, wire="yuv420", dtype=dtype, bn_eps=cfg.model.bn_eps,
+                        quant=cfg.eval.trunk_quant, calib_path=calibration_path(args.test_load),
                         device=device)
 
 
