@@ -15,7 +15,8 @@ Phases, each printing one JSON line:
                 1,466,542 rows), of the training loop's validation (60
                 against 180) and of the command line's trimmed evaluation
                 (80 against 240), of the int8 server's clip query (1
-                against 240), and at two ragged ones:
+                against 240), of a rank's half of the eval gallery in the
+                dist phase (256 against 3,835), and at two ragged ones:
                 rtol 1e-5 / atol 1e-3 on N(0,1) data, and
                 top-30 rows identical on a gallery with planted,
                 well-separated neighbours (tie-free by construction). Each
@@ -23,8 +24,9 @@ Phases, each printing one JSON line:
                 bound is computed as K2's fp32 bound is.
   (d) k2      — K2 against its plain version at [960,56,56,6] (an embed
                 batch): fp32 with TF32 off, atol 1e-4; bf16, atol 0.05 (one
-                bf16 ULP at magnitude 2); and at [32,56,56,6] (a clip
-                query) in fp32. The fp32 bound is the smaller of the fp32
+                bf16 ULP at magnitude 2); at [32,56,56,6] (a clip query)
+                and [480,56,56,6] (a rank's half of an embed batch in the
+                dist phase) in fp32. The fp32 bound is the smaller of the fp32
                 FMA time and that of three TF32 tensor-core passes, never
                 under the bytes bound.
   (e) serve   — the serving path: seeded full-width trunk weights saved as
@@ -196,7 +198,25 @@ Phases, each printing one JSON line:
                 loss readback); a NaN parameter that halts the loop at the
                 next print; a yuv420 run of 1 epoch of 2 steps with a yuv420
                 validation (K2 once an embed batch).
-  (k) cli     — the command line (apps/cli.main, what ``python -m
+  (k) dist    — data parallelism on torch.distributed (phase_dist), after
+                loop, with the launch counters zeroed just before and read
+                just after (the spawned ranks' counts added): (a) a one-rank
+                NCCL group in this process: 3 va fp32 steps of the loop
+                phase's yuv420 batches through TrainLoop(mesh=make_mesh())
+                with a validation through the mesh (sharded extraction, K2;
+                sharded scorer, K1) and the same steps without a mesh,
+                bit-equal (cuDNN deterministic for both), the step ms both
+                ways and the gradient all-reduce's ms; (b) the eval
+                gallery's fake-feature trimmed evaluation under the mesh
+                equal to the one without; (c) two ranks spawned on this card
+                (gloo), each step from the one process's state to
+                train_vs_cpu's tolerances, the sharded trimmed evaluation
+                (3,835 rows a rank) within 1e-3 of (b), the first batch's
+                sharded embeddings and a sharded extraction of 60
+                validation records (wall and host share against one
+                process) within 1e-4. A child that fails or
+                outlives its deadline fails the phase.
+  (l) cli     — the command line (apps/cli.main, what ``python -m
                 vqwild_tpu_torch`` runs) in this process, right after loop,
                 with the launch counters zeroed just before and read just
                 after: train va on the yuv420 wire at full width (10
@@ -219,8 +239,8 @@ Phases, each printing one JSON line:
                 what its evaluator's queries ask for, and K1's shape in the
                 validation, trimmed, clip and moment evaluations, which
                 main() holds to the shapes phase k1 timed.
-  (l) kernels — one {"kernels": [...]} line; ``launches`` counts the serve,
-                eval, int8, clip, moment, train, loop and cli phases
+  (m) kernels — one {"kernels": [...]} line; ``launches`` counts the serve,
+                eval, int8, clip, moment, train, loop, dist and cli phases
                 together.
 
 Then the card's name and power limit, and as the last line
@@ -276,13 +296,19 @@ K1_CLI_MOMENT_CHUNK = (32, 600, 512)
 # the int8 server's sequential clip queries against its 240-row index
 # (phase_int8 checks the rows)
 K1_INT8_QUERY = (1, 240, 512)
+# the dist phase's two ranks: a rank's half of the eval phase's gallery
+# under a 256-query chunk (phase_dist checks both)
+K1_DIST_SHARD = (256, 3835, 512)
 K1_SHAPES = [(16, 7670, 512), (16, 100000, 512), (1, 7670, 512), (5, 130, 512), (300, 1000, 64),
              K1_EVAL_CHUNK, K1_CLIP_CHUNK, K1_MOMENT_CHUNK, K1_MOMENT_DEVICE_CHUNK, K1_LOOP_CHUNK,
-             K1_CLI_CHUNK, K1_CLI_CLIP_CHUNK, K1_CLI_MOMENT_CHUNK, K1_INT8_QUERY]
+             K1_CLI_CHUNK, K1_CLI_CLIP_CHUNK, K1_CLI_MOMENT_CHUNK, K1_INT8_QUERY, K1_DIST_SHARD]
 # galleries that cannot sit in L2: their times are held to their bounds
 K1_BEYOND_L2 = ((16, 100000, 512), K1_CLIP_CHUNK, K1_MOMENT_CHUNK, K1_MOMENT_DEVICE_CHUNK)
-# an embed batch (30 clips x 32 frames) in both types, a clip query in fp32
-K2_CASES = [((960, 56, 56, 6), ("float32", "bfloat16")), ((32, 56, 56, 6), ("float32",))]
+# an embed batch (30 clips x 32 frames) in both types, a clip query in fp32,
+# and a rank's half of an embed batch in the dist phase's sharded extraction
+K2_DIST_SHARD = (480, 56, 56, 6)
+K2_CASES = [((960, 56, 56, 6), ("float32", "bfloat16")), ((32, 56, 56, 6), ("float32",)),
+            (K2_DIST_SHARD, ("float32",))]
 K2_ATOL = {"float32": 1e-4, "bfloat16": 0.05}
 GALLERY_ROWS = 7670
 EMBED_BATCHES, CLIPS, FRAMES, CROP = 16, 30, 32, 112
@@ -342,6 +368,17 @@ TRAIN_VS_CPU_TOL = {"loss": 1e-3, "bn_mean": 1e-4, "bn_var_rel": 1e-2, "memory":
 # gradients that are 0 in exact arithmetic (the softmax is blind to φ's bias;
 # the train-mode W-BN removes W's bias): held to the 2·lr bound only
 ZERO_GRADS = ("cls_nl.phi.bias", "cls_nl.W.0.bias")
+# the dist phase (data parallelism on torch.distributed): 3 va steps of the
+# loop phase's batch (10 triplets, yuv420) with validation; two ranks on the
+# one card (gloo) against the one process, each step from its state, to
+# train_vs_cpu's tolerances; the sharded trimmed metrics to the eval phase's
+# 1e-3; the sharded embeddings to the serve phase's card tolerance, 1e-4:
+# cuDNN picks its fp32 conv algorithms (TF32 off) by the batch's rows, and
+# 15 clips a rank against 30 moved the embeddings by 2.6e-5 (H100)
+DIST_STEPS, DIST_WORLD = 3, 2
+DIST_TOL = TRAIN_VS_CPU_TOL
+DIST_EMBED_ATOL = 1e-4
+DIST_CHILD_TIMEOUT_S = 300
 
 
 def emit(obj) -> None:
@@ -2294,11 +2331,26 @@ def train_vs_cpu(dev, *, steps, batch, frames, crop):
             losses.append({k: float(v) for k, v in ls.items()})
             states.append({k: v.detach().cpu().clone() for k, v in model.state_dict().items()})
         runs[d.type] = {"states": states, "losses": losses, "grads": grads}
-    tol = TRAIN_VS_CPU_TOL
     out = {"phase": "train_vs_cpu", "method": "va", "steps": steps,
-           "shape": [batch, frames, crop, crop, 3], "tolerance": tol, "per_step": []}
-    for i in range(steps):
-        a, b, g = runs["cuda"]["states"][i], runs["cpu"]["states"][i], runs["cuda"]["grads"][i]
+           "shape": [batch, frames, crop, crop, 3], "tolerance": TRAIN_VS_CPU_TOL,
+           "per_step": step_diffs(runs["cuda"], runs["cpu"], lr, TRAIN_VS_CPU_TOL,
+                                  "train_vs_cpu")}
+    emit(out)
+    return out
+
+
+def step_diffs(got, want, lr, tol, label):
+    """Per step, ``got``'s states and losses against ``want``'s ({"states",
+    "losses", "grads"} per step, ``got`` each step from ``want``'s state
+    after the step before): the largest differences of the losses,
+    parameters, BN statistics and memory, and the share of the parameter
+    elements with a resolved gradient (|g| > 1e-3 of the tensor's largest,
+    ``got``'s) beyond 1e-5, over all parameters and over the non-local
+    block's alone; held to ``tol``, and every parameter to an Adam step's
+    2·lr. ZERO_GRADS are held to 2·lr only."""
+    rows = []
+    for i in range(len(want["states"])):
+        a, b, g = got["states"][i], want["states"][i], got["grads"][i]
         diff = {k: (a[k].float() - b[k].float()).abs() for k in b}
         counts = {"all": [0, 0], "non_local": [0, 0]}
         for name, gr in g.items():
@@ -2312,8 +2364,8 @@ def train_vs_cpu(dev, *, steps, batch, frames, crop):
                 counts[key][0] += off
                 counts[key][1] += int(mask.sum())
         row = {
-            "loss": max(abs(runs["cuda"]["losses"][i][k] - runs["cpu"]["losses"][i][k])
-                        for k in runs["cpu"]["losses"][i]),
+            "loss": max(abs(got["losses"][i][k] - want["losses"][i][k])
+                        for k in want["losses"][i]),
             "param_max": max(float(diff[n].max()) for n in g),
             "resolved_share_over_1e-5": counts["all"][0] / counts["all"][1],
             "non_local_resolved_share_over_1e-5": counts["non_local"][0] / counts["non_local"][1],
@@ -2323,12 +2375,11 @@ def train_vs_cpu(dev, *, steps, batch, frames, crop):
             "bn_var_rel": max(float((v / b[k].abs().clamp_min(1e-6)).max())
                               for k, v in diff.items() if k.endswith("running_var")),
             "memory": float(diff["visual_memory"].max())}
-        out["per_step"].append(row)
+        rows.append(row)
         bad = [k for k in tol if not row[k] <= tol[k]]
         if bad or not row["param_max"] <= 2 * lr:
-            raise AssertionError(f"train_vs_cpu step {i}: {row} against {tol}")
-    emit(out)
-    return out
+            raise AssertionError(f"{label} step {i}: {row} against {tol}")
+    return rows
 
 
 def stem_s2d(x, weight):
@@ -3201,6 +3252,413 @@ def phase_cli(dev, workdir, *, nclass, triplets, frames, crop, clips, workers, t
     return {"launches": launches, "k1_chunks": k1_chunks, "k1_launches": k1_by_regime}
 
 
+class StepClock:
+    """ms from its creation to ``ms()``: CUDA events on the card (the work
+    enqueued between them), the host clock on the CPU."""
+
+    def __init__(self, cuda: bool):
+        import torch
+
+        self.cuda = cuda
+        if cuda:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        else:
+            self.t0 = time.perf_counter()
+
+    def ms(self) -> float:
+        if not self.cuda:
+            return 1e3 * (time.perf_counter() - self.t0)
+        self.end.record()
+        self.end.synchronize()
+        return self.start.elapsed_time(self.end)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class ListLoader:
+    """The same loader batches in every epoch."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def epoch(self, e):
+        yield from self.batches
+
+
+def dist_model(dev, nclass):
+    """The dist phase's seeded va model and train state on ``dev``; every
+    process builds the same."""
+    from vqwild_tpu_torch.core.config import ModelConfig
+    from vqwild_tpu_torch.models.arv import build_model
+    from vqwild_tpu_torch.train import create_train_state, make_optimizer
+
+    model = build_model(ModelConfig(method="va", nclass=nclass), device=dev, seed=0)
+    tx = make_optimizer(init_lr=1e-4, weight_decay=1e-5, steps_per_epoch=DIST_STEPS,
+                        lr_decay_epoch=9)
+    return create_train_state(model, tx, seed=1)
+
+
+def fake_trimmed(db, spec, *, clips, frames, feat_dim, rank_chunk, device=None, mesh=None):
+    """ARVRetrievalTrimmed over the eval phase's seeded fake features."""
+    from vqwild_tpu_torch.data.frames import SyntheticFrameStore
+    from vqwild_tpu_torch.retrieval import ARVRetrievalTrimmed, FeatureExtractor, make_fake_feat_fn
+
+    ex = FeatureExtractor(make_fake_feat_fn(feat_dim, seed=6), SyntheticFrameStore(),
+                          test_frames=frames, test_batch_size=clips, fake=True)
+    kw = {"device": device} if mesh is None else {"mesh": mesh}
+    return ARVRetrievalTrimmed(db, spec, ex, eval_split="testing", rank_chunk=rank_chunk, **kw)
+
+
+def timed_extraction(feat_fn, db, *, records, clips, frames, crop):
+    """The first ``records`` validation records of ``db`` through a
+    FeatureExtractor over the synthetic store on the yuv420 wire: the
+    features, the wall seconds and the seconds inside ``feat_fn`` (the rest
+    is the host's: frame reads, crops, packing)."""
+    from vqwild_tpu_torch.data.frames import SyntheticFrameStore
+    from vqwild_tpu_torch.retrieval import FeatureExtractor
+
+    inside = [0.0]
+
+    def fn(*arrays):
+        t0 = time.perf_counter()
+        f = feat_fn(*arrays)
+        inside[0] += time.perf_counter() - t0
+        return f
+
+    ex = FeatureExtractor(fn, SyntheticFrameStore(), test_frames=frames, test_batch_size=clips,
+                          input_size=crop, wire="yuv420")
+    t0 = time.perf_counter()
+    feats = ex.extract_trimmed(db.flat("validation")[:records])
+    wall = time.perf_counter() - t0
+    return {"feats": feats, "wall_s": wall, "feat_fn_s": inside[0],
+            "host_share": 1.0 - inside[0] / wall}
+
+
+def dist_child(in_path, out_path):
+    """One of the dist phase's ranks on cuda:0 (gloo; the environment names
+    the group): the steps over its rows, each after the first from the one
+    process's state; the sharded trimmed evaluation; the sharded
+    embedding of the first batch. Writes its results to ``out_path``."""
+    import torch
+
+    from vqwild_tpu_torch.core.device import disable_tf32
+    from vqwild_tpu_torch.data.labels import get_split
+    from vqwild_tpu_torch.data.schema import load_trimmed_db
+    from vqwild_tpu_torch.ops import distance, stem_pool
+    from vqwild_tpu_torch.parallel import distributed
+    from vqwild_tpu_torch.parallel.mesh import make_mesh
+    from vqwild_tpu_torch.retrieval import make_feat_fn
+    from vqwild_tpu_torch.train import make_train_step
+
+    d = torch.load(in_path, map_location="cpu", weights_only=False)
+    dev = torch.device(d["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        disable_tf32()
+    distributed.initialize(dev, backend="gloo", timeout_s=DIST_CHILD_TIMEOUT_S / 2)
+    mesh = make_mesh(device=dev)
+    state = dist_model(dev, d["nclass"])
+    model = state.model
+    grads = []
+    state.optimizer.register_step_pre_hook(lambda opt, args, kwargs: grads.append(
+        {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}))
+    step = make_train_step(model, state.tx, wire="yuv420", mesh=mesh)
+    out = {"rank": mesh.rank, "losses": [], "states": [], "step_ms": []}
+    rows = None
+    for k, (y, uv, labels) in enumerate(d["batches"]):
+        if k > 0:
+            model.load_state_dict(d["resync"][k - 1])
+        rows = mesh.rows(len(labels))
+        arrays = [torch.from_numpy(np.ascontiguousarray(a[rows])).to(dev) for a in (y, uv, labels)]
+        clock = StepClock(cuda)
+        state, losses = step(state, *arrays)
+        out["step_ms"].append(clock.ms())
+        out["losses"].append({kk: float(v) for kk, v in losses.items()})
+        if mesh.rank == 0:
+            out["states"].append({kk: v.detach().cpu().clone()
+                                  for kk, v in model.state_dict().items()})
+    out["grads"] = grads if mesh.rank == 0 else None
+    out["rows_per_rank"] = rows.stop - rows.start
+    distance.launches.reset()
+    stem_pool.launches.reset()
+    spec = get_split(d["eval_spec"])
+    ev = fake_trimmed(load_trimmed_db(spec.db_json), spec, mesh=mesh, **d["eval_kw"])
+    out["trimmed"] = ev.evaluation()
+    out["trimmed_timings"] = ev.timings
+    y, uv, _ = d["batches"][0]
+    out["embed"] = make_feat_fn(model, wire="yuv420", mesh=mesh)(y, uv)
+    vspec = get_split(d["train_spec"])
+    out["extract"] = timed_extraction(make_feat_fn(model, wire="yuv420", mesh=mesh),
+                                      load_trimmed_db(vspec.db_json), **d["extract_kw"])
+    if cuda:
+        torch.cuda.synchronize()
+    out["launches"] = {"sq_l2": distance.launches.n, "stem_s2d_pool": stem_pool.launches.n}
+    torch.save(out, out_path)
+    distributed.shutdown()
+
+
+def run_dist_children(workdir, world, payload, timeout):
+    """``world`` ranks of dist_child on one device (``payload["device"]``:
+    this card; the CPU for a rehearsal); the first to fail, or
+    the deadline, fails the phase, and every child still running is
+    killed. → each rank's results."""
+    import torch
+
+    in_path = os.path.join(workdir, "dist_in.pt")
+    torch.save(payload, in_path)
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
+            "chip_smoke.dist_child(*sys.argv[1:])")
+    port = free_port()
+    procs, logs, outs = [], [], []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        outs.append(os.path.join(workdir, f"dist_out{r}.pt"))
+        logs.append(open(os.path.join(workdir, f"dist_rank{r}.log"), "w"))
+        procs.append(subprocess.Popen([sys.executable, "-c", code, in_path, outs[r]], env=env,
+                                      stdout=logs[r], stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(workdir, f"dist_rank{r}.log")) as f:
+                tail = f.read()[-4000:]
+            raise RuntimeError(f"dist rank {r} of {world} exited {p.returncode} "
+                               f"(deadline {timeout} s):\n{tail}")
+    return [torch.load(o, map_location="cpu", weights_only=False) for o in outs]
+
+
+def phase_dist(dev, workdir, *, nclass, triplets, frames, crop, clips, steps, world, val_labels,
+               val_per_label, val_noise, eval_labels, eval_per_label, eval_queries_per_label,
+               eval_distractors, feat_dim=512, rank_chunk=256):
+    """Data parallelism on torch.distributed (parallel/, TrainLoop(mesh=),
+    the sharded trimmed evaluator), with the launch counters zeroed just
+    before and read just after, the children's launches added.
+
+    (a) A one-rank NCCL group in this process: ``steps`` va fp32 steps
+    (TF32 off, cuDNN deterministic) at full width from the loop phase's DB
+    (``triplets`` triplets of ``frames`` x ``crop``² yuv420 clips) through
+    TrainLoop(mesh=make_mesh()) with a validation through the mesh (sharded
+    extraction: K2; sharded scorer: K1), and the same steps without a mesh:
+    parameters, BN statistics, memory and optimizer bit-equal; step ms both
+    ways and the gradient all-reduce's device ms. (b) The eval phase's
+    7,670-row gallery of seeded fake features through ARVRetrievalTrimmed
+    under the mesh and without: equal metrics. (c) ``world`` ranks on this
+    card (gloo: NCCL refuses two ranks on one GPU), spawned: each step from
+    the one process's state after the step before, held to DIST_TOL; the
+    sharded trimmed evaluation against (b)'s metrics (EVAL_METRIC_TOL); the
+    first batch embedded through make_feat_fn(mesh=), and 2 embed batches
+    of validation records extracted through it (wall and host seconds),
+    against one process (DIST_EMBED_ATOL)."""
+    import torch
+    import torch.distributed as dist
+
+    from vqwild_tpu_torch.data.frames import SyntheticFrameStore
+    from vqwild_tpu_torch.data.labels import get_split
+    from vqwild_tpu_torch.data.schema import load_trimmed_db
+    from vqwild_tpu_torch.data.triplets import PrefetchLoader, TripletDataset
+    from vqwild_tpu_torch.ops import distance, stem_pool
+    from vqwild_tpu_torch.parallel.mesh import make_mesh
+    from vqwild_tpu_torch.retrieval import ARVRetrievalTrimmed, FeatureExtractor, make_feat_fn
+    from vqwild_tpu_torch.train import TrainLoop, make_train_step
+    from vqwild_tpu_torch.train.step import sum_gradients
+
+    t_phase = time.perf_counter()
+    for sub in ("train", "eval"):
+        os.makedirs(os.path.join(workdir, sub), exist_ok=True)
+    train_spec = write_train_db(os.path.join(workdir, "train"), nclass=nclass, novel=40,
+                                per_class=6, val_labels=val_labels, val_per_label=val_per_label,
+                                val_noise=val_noise, seed=17)
+    eval_spec = write_trimmed_db(os.path.join(workdir, "eval"), labels=eval_labels,
+                                 per_label=eval_per_label,
+                                 queries_per_label=eval_queries_per_label,
+                                 distractors=eval_distractors, seed=5)
+    spec = get_split(train_spec)
+    db = load_trimmed_db(spec.db_json)
+    store = SyntheticFrameStore()
+    ds = TripletDataset(db, spec, store, novel_num=5, train_frames=frames, crop_size=crop,
+                        nclass=nclass, wire="yuv420")
+    batches = list(PrefetchLoader(ds, batch_size=triplets, steps_per_epoch=steps, workers=8,
+                                  seed=0).epoch(0))
+    espec = get_split(eval_spec)
+    edb = load_trimmed_db(espec.db_json)
+    eval_kw = dict(clips=clips, frames=frames, feat_dim=feat_dim, rank_chunk=rank_chunk)
+    extract_kw = dict(records=2 * clips, clips=clips, frames=frames, crop=crop)
+    cuda = dev.type == "cuda"
+    cudnn_det = torch.backends.cudnn.deterministic
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0,
+                            **({"device_id": dev} if cuda else {}))
+    try:
+        torch.backends.cudnn.deterministic = True
+        mesh = make_mesh(device=dev)
+        runs, val = {}, {}
+
+        def validate(st, epoch):
+            ex = FeatureExtractor(make_feat_fn(st.model, wire="yuv420", mesh=mesh), store,
+                                  test_frames=frames, test_batch_size=clips, input_size=crop,
+                                  wire="yuv420")
+            ev = ARVRetrievalTrimmed(db, spec, ex, eval_split="validation",
+                                     rank_chunk=rank_chunk, mesh=mesh)
+            t0 = time.perf_counter()
+            val["result"] = ev.evaluation()
+            val["s"] = time.perf_counter() - t0
+            calls, rows = k1_plan(ev)
+            val["k1_calls"] = len(calls)
+            val["k1_chunks"] = sorted({(b, rows, feat_dim) for b in calls})
+            return val["result"]
+
+        def train(label, m):
+            state = dist_model(dev, nclass)
+            model = state.model
+            grads, states, ms, step_losses = [], [], [], []
+            state.optimizer.register_step_pre_hook(
+                lambda opt, args, kwargs: grads.append(
+                    {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}))
+            step = make_train_step(model, state.tx, wire="yuv420", mesh=m)
+
+            def timed(st, *arrays):
+                clock = StepClock(cuda)
+                st, losses = step(st, *arrays)
+                ms.append(clock.ms())
+                states.append({k: v.detach().cpu().clone()
+                               for k, v in st.model.state_dict().items()})
+                step_losses.append({k: float(v) for k, v in losses.items()})
+                return st, losses
+
+            loop = TrainLoop(timed, ListLoader(batches), epochs=1, mesh=m, print_freq=1,
+                             eval_fn=validate if m is not None else None, eval_per_epoch=1)
+            result = loop.run(state)
+            runs[label] = {"state": state, "step_ms": ms, "states": states, "grads": grads,
+                           "losses": step_losses, "history": result.history}
+
+        # the references, before the launch window: the steps without a mesh
+        # and (b)'s evaluation on one device
+        train("plain", None)
+        want_b = fake_trimmed(edb, espec, device=dev, **eval_kw).evaluation()
+        distance.launches.reset()
+        stem_pool.launches.reset()
+        # ---- the dist path, from here to the counter read at the end ----
+        train("mesh", mesh)
+        differ = states_equal(runs["mesh"]["state"], runs["plain"]["state"])
+        params = [p for p in runs["mesh"]["state"].model.parameters()]
+        gbufs = [torch.zeros_like(p) for p in params]
+        allreduce_ms = time_ms(lambda: sum_gradients(gbufs, mesh)) if cuda else None
+
+        # (b) the eval phase's gallery under the one-rank mesh
+        t0 = time.perf_counter()
+        got_b = fake_trimmed(edb, espec, mesh=mesh, **eval_kw).evaluation()
+        mesh_eval_s = time.perf_counter() - t0
+        diff_b = tree_max_diff(got_b, want_b)
+        n_queries = eval_labels * eval_queries_per_label
+        b_chunks = -(-n_queries // rank_chunk)
+
+        # (c) two ranks on this card
+        t0 = time.perf_counter()
+        children = run_dist_children(workdir, world, {
+            "device": str(dev), "nclass": nclass, "batches": [(b.y, b.uv, b.labels) for b in batches],
+            "resync": runs["plain"]["states"][:-1], "eval_spec": eval_spec,
+            "eval_kw": eval_kw, "train_spec": train_spec, "extract_kw": extract_kw},
+            DIST_CHILD_TIMEOUT_S)
+        children_s = time.perf_counter() - t0
+        if cuda:
+            torch.cuda.synchronize()
+        launches = {"sq_l2": distance.launches.n, "stem_s2d_pool": stem_pool.launches.n}
+        own_launches = dict(launches)
+        child_launches = [c["launches"] for c in children]
+        for c in child_launches:
+            for k in launches:
+                launches[k] += c[k]
+        # ---- end of the dist path ----
+        one_fn = make_feat_fn(runs["plain"]["state"].model, wire="yuv420", device=dev)
+        one_embed = one_fn(batches[0].y, batches[0].uv)
+        one_extract = timed_extraction(one_fn, db, **extract_kw)
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+        dist.destroy_process_group()
+    c0 = children[0]
+    step_rows = step_diffs({"states": c0["states"], "losses": c0["losses"], "grads": c0["grads"]},
+                           runs["plain"], 1e-4,
+                           DIST_TOL, "dist (c)")
+    rank_losses_equal = all(c["losses"] == c0["losses"] for c in children)
+    diff_c = max(tree_max_diff(c["trimmed"], want_b) for c in children)
+    embed_diff = max(float(np.abs(c["embed"] - one_embed).max()) for c in children)
+    embed_diff = max([embed_diff] + [float(np.abs(c["extract"]["feats"]
+                                                  - one_extract["feats"]).max())
+                                     for c in children])
+    extraction = {"records": extract_kw["records"],
+                  "one_process": {k: v for k, v in one_extract.items() if k != "feats"},
+                  "by_rank": [{k: v for k, v in c["extract"].items() if k != "feats"}
+                              for c in children]}
+    out = {"phase": "dist", "steps": steps, "triplets": triplets, "wire": "yuv420",
+           "a_world1_nccl": {"bit_equal": not differ, "differ": differ,
+                             "step_ms_mesh": runs["mesh"]["step_ms"],
+                             "step_ms_plain": runs["plain"]["step_ms"],
+                             "allreduce_ms": allreduce_ms,
+                             "grad_elements": sum(p.numel() for p in params),
+                             "validation_s": val["s"], "validation_ap": val["result"]["ap"],
+                             "validation_k1_chunks": val["k1_chunks"]},
+           "b_eval_world1": {"metrics_max_abs_diff": diff_b, "wall_s": mesh_eval_s,
+                             "chunks": b_chunks, "gallery": len(edb.flat("testing"))},
+           "c_two_ranks_gloo": {"world": world, "rows_per_rank": c0["rows_per_rank"],
+                                "per_step_vs_one_process": step_rows, "tolerance": DIST_TOL,
+                                "rank_losses_equal": rank_losses_equal,
+                                "step_ms_by_rank": [c["step_ms"] for c in children],
+                                "trimmed_max_abs_diff_vs_one_process": diff_c,
+                                "trimmed_tol": EVAL_METRIC_TOL,
+                                "trimmed_timings_rank0": c0["trimmed_timings"],
+                                "embed_max_abs_diff": embed_diff, "embed_tol": DIST_EMBED_ATOL,
+                                "sharded_extraction": extraction,
+                                "launches_by_rank": child_launches, "wall_s": children_s},
+           "launches": launches, "launches_own": own_launches,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    if differ:
+        raise AssertionError(f"dist (a): the one-rank mesh run and the plain run differ in "
+                             f"{differ}")
+    if diff_b != 0.0:
+        raise AssertionError(f"dist (b): metrics under the one-rank mesh differ by {diff_b}")
+    if not rank_losses_equal:
+        raise AssertionError("dist (c): the ranks' losses differ")
+    if not diff_c <= EVAL_METRIC_TOL:
+        raise AssertionError(f"dist (c): sharded trimmed metrics differ by {diff_c}")
+    if not embed_diff <= DIST_EMBED_ATOL:
+        raise AssertionError(f"dist (c): sharded embeddings differ by {embed_diff}")
+    k2_want = 1 + -(-extract_kw["records"] // clips)
+    if cuda and own_launches["sq_l2"] != val["k1_calls"] + b_chunks:
+        raise AssertionError(f"dist: this process launched K1 {own_launches['sq_l2']} times; "
+                             f"expected once a chunk of the validation ({val['k1_calls']}) "
+                             f"and of (b) ({b_chunks})")
+    for c in child_launches if cuda else ():
+        if c != {"sq_l2": b_chunks, "stem_s2d_pool": k2_want}:
+            raise AssertionError(f"dist (c): a rank launched {c}; expected K1 once a chunk "
+                                 f"({b_chunks}) and K2 once an embed batch ({k2_want})")
+    out["k1_shard"] = (min(rank_chunk, n_queries), len(edb.flat("testing")) // world, feat_dim)
+    out["k2_shard"] = (c0["rows_per_rank"] * frames, crop // 2, crop // 2, 6)
+    out["k1_chunks"] = val["k1_chunks"]
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3238,6 +3696,13 @@ def main() -> int:
                           val_labels=LOOP_VAL_LABELS, val_per_label=LOOP_VAL_PER_LABEL,
                           val_noise=LOOP_VAL_NOISE, clips=CLIPS,
                           loader_workers=LOOP_LOADER_WORKERS)
+        dist = phase_dist(dev, os.path.join(workdir, "dist"), nclass=TRAIN_NCLASS,
+                          triplets=TRAIN_TRIPLETS, frames=FRAMES, crop=CROP, clips=CLIPS,
+                          steps=DIST_STEPS, world=DIST_WORLD, val_labels=LOOP_VAL_LABELS,
+                          val_per_label=LOOP_VAL_PER_LABEL, val_noise=LOOP_VAL_NOISE,
+                          eval_labels=EVAL_LABELS, eval_per_label=EVAL_PER_LABEL,
+                          eval_queries_per_label=EVAL_QUERIES_PER_LABEL,
+                          eval_distractors=EVAL_DISTRACTORS)
         cli = phase_cli(dev, os.path.join(workdir, "cli"), nclass=TRAIN_NCLASS,
                         triplets=TRAIN_TRIPLETS, frames=FRAMES, crop=CROP, clips=CLIPS,
                         workers=LOOP_WORKERS, test_base=CLI_TEST_BASE,
@@ -3274,6 +3739,13 @@ def main() -> int:
     if loop["k1_chunk"] != K1_LOOP_CHUNK:
         raise AssertionError(f"the loop's validation ran K1 at {loop['k1_chunk']}; K1 was timed "
                              f"at {K1_LOOP_CHUNK}")
+    if dist["k1_chunks"] != [K1_LOOP_CHUNK] or dist["k1_shard"] != K1_DIST_SHARD:
+        raise AssertionError(f"the dist phase ran K1 at {dist['k1_chunks']} and "
+                             f"{dist['k1_shard']}; K1 was timed at {K1_LOOP_CHUNK} and "
+                             f"{K1_DIST_SHARD}")
+    if dist["k2_shard"] != K2_DIST_SHARD:
+        raise AssertionError(f"the dist phase's ranks ran K2 at {dist['k2_shard']}; K2 was "
+                             f"timed at {K2_DIST_SHARD}")
     cli_chunks = {"validation": [K1_LOOP_CHUNK], "trimmed": [K1_CLI_CHUNK],
                   "clip": [K1_CLI_CLIP_CHUNK], "moment": [K1_CLI_MOMENT_CHUNK]}
     if cli["k1_chunks"] != cli_chunks:
@@ -3290,10 +3762,13 @@ def main() -> int:
     k1_cli_clip = next(r for r in k1 if tuple(r["shape"]) == K1_CLI_CLIP_CHUNK)
     k1_cli_moment = next(r for r in k1 if tuple(r["shape"]) == K1_CLI_MOMENT_CHUNK)
     k1_int8 = next(r for r in k1 if tuple(r["shape"]) == K1_INT8_QUERY)
+    k1_dist = next(r for r in k1 if tuple(r["shape"]) == K1_DIST_SHARD)
     k2_main = k2[0]  # an embed batch in fp32, the serving dtype
+    k2_dist = next(r for r in k2 if tuple(r["shape"]) == K2_DIST_SHARD)
     paths = {"serve": serve["launches"], "eval": evald["launches"], "int8": int8["launches"],
              "clip": clip["launches"], "moment": moment["launches"],
-             "train": train["launches"], "loop": loop["launches"], "cli": cli["launches"]}
+             "train": train["launches"], "loop": loop["launches"], "cli": cli["launches"],
+             "dist": dist["launches"]}
     launches = {k: sum(p[k] for p in paths.values()) for k in serve["launches"]}
     chunk_keys = ("shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
@@ -3314,6 +3789,7 @@ def main() -> int:
          "cli_clip_chunk": {k: k1_cli_clip[k] for k in chunk_keys},
          "cli_moment_chunk": {k: k1_cli_moment[k] for k in chunk_keys},
          "int8_query": {k: k1_int8[k] for k in chunk_keys},
+         "dist_shard": {k: k1_dist[k] for k in chunk_keys},
          "cli_launches_by_regime": cli["k1_launches"]},
         {"name": "stem_s2d_pool", "route": "cuda", "source": "vqwild_tpu_torch/csrc/stem_pool.cu",
          "replaces": "vqwild_tpu/ops/pallas_kernels.py:152",
@@ -3322,7 +3798,8 @@ def main() -> int:
          "max_abs_err": k2_main["max_abs_err"],
          "ms": k2_main["kernel_ms"], "plain_ms": k2_main["plain_ms"],
          "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"].split(",")[0],
-         "library_ms": k2_main["library_ms"], "shape": k2_main["shape"], "dtype": "float32"},
+         "library_ms": k2_main["library_ms"], "shape": k2_main["shape"], "dtype": "float32",
+         "dist_shard": {k: k2_dist[k] for k in chunk_keys}},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

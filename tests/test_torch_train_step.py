@@ -166,11 +166,11 @@ def assert_losses_close(got, want, rtol=LOSS_RTOL, atol=LOSS_TOL, total_atol=TOT
             assert abs(g[k] - w[k]) <= tol, (i, k, g[k], w[k])
 
 
-def assert_steps_close(run, want_states, lr_bound, memory_tol=MEMORY_TOL):
+def assert_steps_close(run, want_states, lr_bound, memory_tol=MEMORY_TOL, max_off=MAX_OFF):
     """After every step: every parameter within ``lr_bound``, and within
-    PARAM_TOL on all but MAX_OFF of the elements whose gradient is resolved
-    (exactly equal after a call that did not update them); the BN running
-    statistics; the memory."""
+    PARAM_TOL on all but ``max_off`` of the elements whose gradient is
+    resolved (exactly equal after a call that did not update them); the BN
+    running statistics; the memory."""
     names = [n for n, _ in run.model.named_parameters()]
     for k, (got, want, grads) in enumerate(zip(run.states, want_states, run.grads)):
         n_resolved = n_off = 0
@@ -189,7 +189,7 @@ def assert_steps_close(run, want_states, lr_bound, memory_tol=MEMORY_TOL):
                 resolved[:] = True
             n_resolved += int(resolved.sum())
             n_off += int((np.abs(g[resolved] - w[resolved]) > PARAM_TOL).sum())
-        assert n_off <= MAX_OFF * n_resolved, (k, n_off, n_resolved)
+        assert n_off <= max_off * n_resolved, (k, n_off, n_resolved)
         for name, w in want.items():
             if name.endswith("running_mean"):
                 np.testing.assert_allclose(got[name].numpy(), w.numpy(), atol=BN_MEAN_ATOL,

@@ -22,8 +22,21 @@ only) extracts features through the int8 trunk, its calibration read from
 or written to ``models.quant.calibration_path(--test_load)``, the JAX
 package's file; ``--trunk_int8_const`` runs the same graph (eager PyTorch
 has no jit constants). ``--stem_s2d`` is carried in the config and changes
-nothing (the port's trunk always trains through the 7x7 stem). One device
-only: the JAX package's mesh has no counterpart here yet.
+nothing (the port's trunk always trains through the 7x7 stem).
+
+Several GPUs, one process each (parallel/distributed.py, parallel/mesh.py):
+  torchrun --nproc_per_node N -m vqwild_tpu_torch --method vasa ...
+Where the JAX command line builds a data mesh over its devices, this one
+builds it over the ranks (world size > 1): training runs the global batch
+of ``--batch_size`` triplets over the ranks (each loads, uploads and
+computes its row block), validation and the trimmed evaluation shard each
+embed batch and the gallery rows, and ``--device cuda`` is
+``cuda:LOCAL_RANK``. Rank 0 alone writes the run directory, its log,
+checkpoints, metrics and exports. The clip and moment evaluators and the
+int8 trunk are not ported to a mesh yet (ROADMAP.md, Slice 6b): with a
+world size above 1, ``--eval_clip``, ``--eval_moment``, ``--eval_all`` and
+``--trunk_int8[_const]`` are refused before anything runs, and the
+evaluation after training is the trimmed one.
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import hashlib
+import logging
 import os
 from typing import Optional
 
@@ -430,19 +444,32 @@ def _int8_calib_path(test_load: str) -> Optional[str]:
     return calibration_path(test_load)
 
 
-def _feat_fn(cfg, model, device, calib_path: Optional[str] = None):
+def _feat_fn(cfg, model, device, calib_path: Optional[str] = None, mesh=None):
     """The eval embedding of ``model`` on ``cfg.eval.wire`` (make_feat_fn:
     the BN-folded trunk, on yuv420 with its stem as kernel K2; or, under
     ``cfg.eval.trunk_quant``, the int8 trunk calibrated from ``calib_path``
-    or from its first batch)."""
+    or from its first batch), each batch sharded over ``mesh``'s ranks."""
     from vqwild_tpu_torch.retrieval.features import make_feat_fn
 
     return make_feat_fn(model, wire=cfg.eval.wire, dtype=getattr(torch, cfg.model.compute_dtype),
                         bn_eps=cfg.model.bn_eps, quant=cfg.eval.trunk_quant,
-                        calib_path=calib_path, device=device)
+                        calib_path=calib_path, device=device, mesh=mesh)
 
 
-def run_evaluation(cfg, extra, run_dir: RunDir):
+def refuse_on_a_mesh(cfg, extra) -> None:
+    """What a world size above 1 cannot run yet, refused before anything
+    runs (nothing falls back to one rank)."""
+    asked = [flag for flag, on in (("--eval_clip", extra.get("eval_clip")),
+                                   ("--eval_moment", extra.get("eval_moment")),
+                                   ("--eval_all", extra.get("eval_all")),
+                                   ("--trunk_int8", cfg.eval.trunk_quant is not None)) if on]
+    if asked:
+        raise SystemExit(f"{', '.join(asked)}: not ported to several ranks yet (ROADMAP.md, "
+                         "Slice 6b: the clip and moment evaluators and the int8 trunk under a "
+                         "mesh); run them with one process")
+
+
+def run_evaluation(cfg, extra, run_dir: RunDir, mesh=None):
     from vqwild_tpu_torch.retrieval import (
         ARVRetrievalClip,
         ARVRetrievalMoment,
@@ -450,13 +477,14 @@ def run_evaluation(cfg, extra, run_dir: RunDir):
     )
     from vqwild_tpu_torch.retrieval.features import FeatureExtractor, make_fake_feat_fn
 
-    device = resolve_device(extra.get("device", "cuda"))
+    device = resolve_device(extra.get("device", "cuda")) if mesh is None else mesh.device
     spec, db, store, model, _, _ = build_stack(cfg, device)
     if cfg.eval.fake_features:
         feat_fn = make_fake_feat_fn(cfg.model.feat_dim)
     else:
         load_variables(extra.get("test_load", ""), cfg.model.method, model)
-        feat_fn = _feat_fn(cfg, model, device, _int8_calib_path(extra.get("test_load", "")))
+        feat_fn = _feat_fn(cfg, model, device, _int8_calib_path(extra.get("test_load", "")),
+                           mesh)
     extractor = FeatureExtractor(
         feat_fn,
         store,
@@ -493,6 +521,7 @@ def run_evaluation(cfg, extra, run_dir: RunDir):
             read_cache=cfg.eval.read_cache_feat,
             collect_diagnostics=cfg.eval.collect_diagnostics,
             device=device,
+            mesh=mesh,
         ).evaluation()
     if want_clip or want_moment:
         mdb = load_moment_db(resolve_data_file(spec.moment_db_json, cfg.data.data_root))
@@ -546,7 +575,7 @@ def run_evaluation(cfg, extra, run_dir: RunDir):
     return results
 
 
-def run_training(cfg, extra, run_dir: RunDir):
+def run_training(cfg, extra, run_dir: RunDir, mesh=None):
     from vqwild_tpu_torch.core.profiling import trace
     from vqwild_tpu_torch.core.summaries import model_summary, optimizer_summary
     from vqwild_tpu_torch.data.triplets import PrefetchLoader, TripletDataset
@@ -562,7 +591,7 @@ def run_training(cfg, extra, run_dir: RunDir):
         restore_train_state,
     )
 
-    device = resolve_device(extra.get("device", "cuda"))
+    device = resolve_device(extra.get("device", "cuda")) if mesh is None else mesh.device
     spec, db, store, model, semantic_mem, _ = build_stack(cfg, device)
     dataset = TripletDataset(
         db,
@@ -584,6 +613,7 @@ def run_training(cfg, extra, run_dir: RunDir):
         steps_per_epoch=steps_per_epoch,
         workers=cfg.data.workers,
         seed=cfg.train.manual_seed,
+        shard=None if mesh is None else (mesh.rank, mesh.size),
     )
     tx = make_optimizer(
         cfg.train.init_lr,
@@ -605,6 +635,7 @@ def run_training(cfg, extra, run_dir: RunDir):
         ranking_weight=extra.get("ranking_weight", 0.0),
         triplet_margin=extra.get("triplet_margin", 1.0),
         wire=cfg.eval.wire,
+        mesh=mesh,
     )
     step = make_train_step(model, tx, **step_kwargs)
     scan_fn = None
@@ -613,7 +644,7 @@ def run_training(cfg, extra, run_dir: RunDir):
 
     def eval_fn(st, epoch):
         extractor = FeatureExtractor(
-            _feat_fn(cfg, st.model, device),
+            _feat_fn(cfg, st.model, device, mesh=mesh),
             store,
             test_frames=cfg.data.test_frame,
             test_batch_size=cfg.data.test_batch_size,
@@ -632,9 +663,10 @@ def run_training(cfg, extra, run_dir: RunDir):
             robust_map=cfg.eval.robust_map,
             rank_chunk=cfg.eval.rank_chunk,
             device=device,
+            mesh=mesh,
         ).evaluation()
 
-    ckpt = CheckpointManager(run_dir.checkpoint_dir())
+    ckpt = CheckpointManager(run_dir.checkpoint_dir(), mesh=mesh)
     start_epoch = 0
     if extra.get("resume") and ckpt.exists("last"):
         start_epoch = restore_train_state(state, ckpt.restore("last", map_location="cpu"))
@@ -646,6 +678,7 @@ def run_training(cfg, extra, run_dir: RunDir):
         eval_fn=eval_fn,
         eval_per_epoch=cfg.train.eval_per_epoch,
         ckpt=ckpt,
+        mesh=mesh,
         print_freq=cfg.train.print_freq,
         start_epoch=start_epoch,
         scan_fn=scan_fn,
@@ -664,18 +697,22 @@ def run_training(cfg, extra, run_dir: RunDir):
         ),
     )
 
-    # final: reload best, evaluate on testing with all regimes (main.py:606-617)
+    # final: reload best, evaluate on testing with all regimes (main.py:606-617);
+    # under a mesh the trimmed regime only (refuse_on_a_mesh)
     if ckpt.exists("best"):
-        extra = dict(extra, evaluate=True, eval_all=True,
+        if mesh is not None:
+            log.warning("evaluating the trimmed regime only: the clip and moment evaluators "
+                        "run with one process (ROADMAP.md, Slice 6b)")
+        extra = dict(extra, evaluate=True, eval_all=mesh is None,
                      test_load=os.path.join(run_dir.checkpoint_dir(), "best"))
         final_cfg = dataclasses.replace(
             cfg, eval=dataclasses.replace(cfg.eval, eval_split="testing", read_cache_feat=False)
         )
-        return run_evaluation(final_cfg, extra, run_dir)
+        return run_evaluation(final_cfg, extra, run_dir, mesh)
     return {"best_ap": result.best_score}
 
 
-def run_export_torch(cfg, extra) -> None:
+def run_export_torch(cfg, extra, mesh=None) -> None:
     """Write --test_load (a checkpoint directory of the port's training or
     a .pth.tar) as a reference-compatible best.pth.tar at --export_torch
     (models/convert.save_reference_checkpoint).
@@ -688,7 +725,9 @@ def run_export_torch(cfg, extra) -> None:
 
     if not extra.get("test_load"):
         raise SystemExit("--export_torch requires --test_load (a checkpoint)")
-    device = resolve_device(extra.get("device", "cuda"))
+    if mesh is not None and mesh.rank != 0:
+        return
+    device = resolve_device(extra.get("device", "cuda")) if mesh is None else mesh.device
     model = build_stack(cfg, device)[3]
     load_variables(extra["test_load"], cfg.model.method, model)
     save_reference_checkpoint(extra["export_torch"], model, cfg.model.method)
@@ -696,17 +735,37 @@ def run_export_torch(cfg, extra) -> None:
 
 
 def main(argv=None):
+    """One process, or one rank of ``torchrun``: the process group is
+    joined here (parallel/distributed.initialize) and a world size above 1
+    runs under a data mesh (parallel/mesh.make_mesh), as the JAX command
+    line runs under one when it sees several devices."""
+    import torch.distributed as dist
+
+    from vqwild_tpu_torch.parallel import distributed
+    from vqwild_tpu_torch.parallel.mesh import make_mesh
+
     cfg, extra = parse(argv)
-    resolve_device(extra["device"])
+    device = distributed.rank_device(extra["device"])
+    joined_here = not dist.is_initialized()
+    mesh = make_mesh(device=device) if distributed.initialize(device) else None
+    extra = dict(extra, device=str(device))
     if cfg.model.compute_dtype == "float32":
         disable_tf32()
-    if extra.get("export_torch"):
-        return run_export_torch(cfg, extra)
-    run_dir = RunDir.create(cfg)
-    log.info("run dir: %s", run_dir.path)
     try:
-        if extra["evaluate"]:
-            return run_evaluation(cfg, extra, run_dir)
-        return run_training(cfg, extra, run_dir)
+        if mesh is not None:
+            refuse_on_a_mesh(cfg, extra)
+            if mesh.rank != 0:  # rank 0 logs; the others say only what goes wrong
+                get_logger().setLevel(logging.WARNING)
+        if extra.get("export_torch"):
+            return run_export_torch(cfg, extra, mesh)
+        run_dir = RunDir.create(cfg, write=mesh is None or mesh.rank == 0)
+        log.info("run dir: %s", run_dir.path)
+        try:
+            if extra["evaluate"]:
+                return run_evaluation(cfg, extra, run_dir, mesh)
+            return run_training(cfg, extra, run_dir, mesh)
+        finally:
+            run_dir.close()
     finally:
-        run_dir.close()
+        if joined_here:
+            distributed.shutdown()

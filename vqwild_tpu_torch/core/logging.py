@@ -65,8 +65,14 @@ class RunDir:
         metrics/              per-eval metric JSON dumps
     """
 
-    def __init__(self, path: str, backup_existing: bool = True):
+    def __init__(self, path: str, backup_existing: bool = True, write: bool = True):
+        """``write=False`` (a rank other than 0 of a data-parallel run):
+        the same paths, but nothing is created or written."""
         self.path = path
+        self.write = write
+        self._file_handler = None
+        if not write:
+            return
         os.makedirs(path, exist_ok=True)
         for sub in ("checkpoints", "cache", "metrics"):
             os.makedirs(os.path.join(path, sub), exist_ok=True)
@@ -83,11 +89,12 @@ class RunDir:
         self._file_handler = handler
 
     @classmethod
-    def create(cls, cfg, root: str = "train_log") -> "RunDir":
+    def create(cls, cfg, root: str = "train_log", write: bool = True) -> "RunDir":
         path = cfg.run_dir or os.path.join(root, cfg.run_name())
-        rd = cls(path)
-        with open(os.path.join(path, "config.json"), "w") as f:
-            f.write(cfg.to_json())
+        rd = cls(path, write=write)
+        if write:
+            with open(os.path.join(path, "config.json"), "w") as f:
+                f.write(cfg.to_json())
         return rd
 
     def checkpoint_dir(self) -> str:
@@ -98,6 +105,8 @@ class RunDir:
 
     def write_metrics(self, name: str, metrics: dict) -> str:
         out = os.path.join(self.path, "metrics", name + ".json")
+        if not self.write:
+            return out
 
         def _default(o):
             tolist = getattr(o, "tolist", None)  # ndarray / np scalar / tensor
@@ -108,5 +117,7 @@ class RunDir:
         return out
 
     def close(self):
+        if self._file_handler is None:
+            return
         logging.getLogger(_LOGGER_NAME).removeHandler(self._file_handler)
         self._file_handler.close()

@@ -57,6 +57,32 @@ def read_clip_raw(
     return RawClip(frames=frames, crop=crop)
 
 
+def draw_crop_unread(
+    store: FrameStore,
+    record: VideoRecord,
+    out_frames: int,
+    fps: int = 3,
+    rng: Optional[np.random.Generator] = None,
+    crop_size: int = 112,
+    yuv: bool = False,
+) -> transforms.CropParams:
+    """The crop that ``read_clip_raw`` (``read_clip_yuv`` when ``yuv``)
+    would draw from ``rng`` for this clip, without reading its frames: the
+    generator advances as the read would advance it. The frame size comes
+    from the store's ``real_dims`` (YUV stores) or from the clip's first
+    frame."""
+    if yuv:
+        h, w = store.real_dims(record.activitynet_subset)
+    else:
+        start_frame_idx, gt_frame_num = segment_to_frames(record.segment, fps)
+        total = store.num_frames(record.activitynet_subset, record.video_id)
+        idx = sample_frame_indices(start_frame_idx, gt_frame_num, out_frames, total)
+        h, w = store.read_frames(record.activitynet_subset, record.video_id, idx[:1]).shape[1:3]
+    if rng is not None:
+        return transforms.random_crop_params(rng, h, w, crop_size)
+    return transforms.center_crop_params(h, w, crop_size)
+
+
 def read_clip_normalized(
     store: FrameStore,
     record: VideoRecord,

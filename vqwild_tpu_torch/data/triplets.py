@@ -17,6 +17,14 @@ Batches leave the host cropped: crop/flip applied in the worker threads
 device, normalization on the device in the train step. A background thread
 pool keeps the device fed (replacing torch DataLoader workers,
 main.py:96-101).
+
+Data parallelism (one process per GPU, parallel/mesh.py): a loader built
+with ``shard=(rank, world)`` draws the same global batches on every rank
+from the seed, but reads and crops only this rank's rows of the batch
+padded to a multiple of ``world`` (edge-repeat, as
+parallel/mesh.pad_to_multiple pads); the rows of the other ranks advance
+the generator without a read. The ranks' batches, concatenated in rank
+order, are the padded global batch bit for bit.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ import dataclasses
 import os
 import queue
 import threading
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -34,6 +42,7 @@ from vqwild_tpu_torch.data.clips import (
     RawClip,
     batch_cropped_clips,
     batch_cropped_clips_yuv,
+    draw_crop_unread,
     read_clip_raw,
     read_clip_yuv,
 )
@@ -41,6 +50,7 @@ from vqwild_tpu_torch.data.frames import FrameStore
 from vqwild_tpu_torch.data.labels import SplitSpec
 from vqwild_tpu_torch.data.schema import TrimmedDB, VideoRecord
 from vqwild_tpu_torch.ops.preprocess import rgb_to_yuv420_host
+from vqwild_tpu_torch.parallel.mesh import rank_rows
 
 log = get_logger("data.triplets")
 
@@ -51,6 +61,9 @@ class TripletBatch:
     clips: Optional[np.ndarray] = None  # rgb wire: [B*3,T,s,s,C] u8 host-cropped
     y: Optional[np.ndarray] = None  # yuv420 wire: [B*3,T,s,s] u8
     uv: Optional[np.ndarray] = None  # yuv420 wire: [B*3,T,s/2,s/2,2] u8
+    # a sharded loader's batch: this rank's rows of the padded global batch,
+    # which has this many real rows (None: the whole batch)
+    global_rows: Optional[int] = None
 
     @property
     def arrays(self):
@@ -113,7 +126,12 @@ class TripletDataset:
     def __len__(self) -> int:
         return self.length
 
-    def sample_triplet(self, rng: np.random.Generator) -> List[RawClip]:
+    def sample_triplet(self, rng: np.random.Generator,
+                       keep: Sequence[bool] = (True, True, True)) -> List[RawClip]:
+        """(anchor, positive, negative) clips drawn from ``rng``. A clip
+        whose ``keep`` is False is not read (its ``frames`` are None): its
+        crop is drawn all the same, so the generator ends where a full read
+        leaves it."""
         anchor_cls = self.labels[int(rng.integers(len(self.labels)))]
         neg_idx = int(rng.integers(len(self.labels) - 1))
         if self.labels[neg_idx] == anchor_cls:
@@ -129,13 +147,15 @@ class TripletDataset:
         neg_pool = self.data[negative_cls]
         neg_rec = neg_pool[int(rng.integers(len(neg_pool)))]
 
-        clips = []
+        clips: List[RawClip] = []
         reader = read_clip_yuv if self.yuv_native else read_clip_raw
-        for rec, cls in (
-            (anchor_rec, anchor_cls),
-            (pos_rec, anchor_cls),
-            (neg_rec, negative_cls),
-        ):
+        members = ((anchor_rec, anchor_cls), (pos_rec, anchor_cls), (neg_rec, negative_cls))
+        for (rec, cls), read in zip(members, keep):
+            if not read:
+                crop = draw_crop_unread(self.store, rec, self.train_frames, fps=self.fps,
+                                        rng=rng, crop_size=self.crop_size, yuv=self.yuv_native)
+                clips.append(RawClip(frames=None, crop=crop, label=self.cls2int[cls]))
+                continue
             clip = reader(
                 self.store,
                 rec,
@@ -148,19 +168,28 @@ class TripletDataset:
             clips.append(clip)
         return clips
 
-    def build_batch(self, rng: np.random.Generator, batch_size: int) -> TripletBatch:
-        clips: List[RawClip] = []
-        for _ in range(batch_size):
-            clips.extend(self.sample_triplet(rng))
+    def build_batch(self, rng: np.random.Generator, batch_size: int,
+                    shard: Optional[Tuple[int, int]] = None) -> TripletBatch:
+        """``batch_size`` triplets drawn from ``rng``. ``shard=(rank,
+        world)``: rank's row block of the batch padded to a multiple of
+        ``world`` (the module docstring); only those rows are read."""
+        n = 3 * batch_size
+        rows = list(range(n)) if shard is None else rank_rows(n, *shard).tolist()
+        need = set(rows)
+        drawn: List[RawClip] = []
+        for t in range(batch_size):
+            drawn.extend(self.sample_triplet(rng, [3 * t + j in need for j in range(3)]))
+        clips = [drawn[i] for i in rows]
         labels = np.array([c.label for c in clips], dtype=np.int32)
+        global_rows = None if shard is None else n
         if self.yuv_native:
             y, uv = batch_cropped_clips_yuv(clips, self.crop_size)
-            return TripletBatch(labels=labels, y=y, uv=uv)
+            return TripletBatch(labels=labels, y=y, uv=uv, global_rows=global_rows)
         cropped = batch_cropped_clips(clips)
         if self.wire == "yuv420":
             y, uv = rgb_to_yuv420_host(cropped)
-            return TripletBatch(labels=labels, y=y, uv=uv)
-        return TripletBatch(labels=labels, clips=cropped)
+            return TripletBatch(labels=labels, y=y, uv=uv, global_rows=global_rows)
+        return TripletBatch(labels=labels, clips=cropped, global_rows=global_rows)
 
 
 class PrefetchLoader:
@@ -179,27 +208,38 @@ class PrefetchLoader:
         workers: int = 4,
         seed: int = 0,
         prefetch: int = 4,
+        shard: Optional[Tuple[int, int]] = None,
     ):
+        """``shard=(rank, world)``: each batch is this rank's row block of
+        the global batch (``TripletDataset.build_batch``); every rank of a
+        run must use the same ``workers`` and ``seed``. The global batch
+        depends on the worker count (``epoch``), so a sharded loader keeps
+        the requested count; otherwise it is capped at the host's cores."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.steps_per_epoch = steps_per_epoch or max(1, len(dataset) // batch_size)
         # capped at the host's core count, as the JAX loader is: there the
         # packed stores' GIL-releasing memmap reads scaled negatively past it
-        self.workers = max(1, min(workers, os.cpu_count() or workers))
+        if shard is None:
+            workers = min(workers, os.cpu_count() or workers)
+        self.workers = max(1, workers)
         self.seed = seed
         self.prefetch = prefetch
+        self.shard = shard
 
     def epoch(self, epoch_idx: int) -> Iterator[TripletBatch]:
-        """The epoch's batches. With one worker they come in the order its
-        generator draws them, reseeded from (seed, epoch): an epoch reads
+        """The epoch's batches. Batch k is worker k mod ``workers``'s
+        (k div ``workers``)-th, drawn from that worker's generator seeded
+        from (seed, epoch, worker), and they come in order: an epoch reads
         the same batches whenever it runs, so a resumed run sees what an
-        uninterrupted one would."""
-        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        uninterrupted one would, and the ranks of a sharded run see one
+        global batch at each step."""
         n_steps = self.steps_per_epoch
-        counter = threading.Semaphore(n_steps)
+        depth = max(1, -(-self.prefetch // self.workers))
+        queues = [queue.Queue(maxsize=depth) for _ in range(self.workers)]
         stop = threading.Event()
 
-        def put(item):
+        def put(q, item):
             while not stop.is_set():
                 try:
                     q.put(item, timeout=0.5)
@@ -212,20 +252,23 @@ class PrefetchLoader:
                 np.random.SeedSequence([self.seed, epoch_idx, widx])
             )
             try:
-                while not stop.is_set() and counter.acquire(blocking=False):
-                    put(self.dataset.build_batch(rng, self.batch_size))
+                for _ in range(widx, n_steps, self.workers):
+                    if stop.is_set():
+                        return
+                    put(queues[widx], self.dataset.build_batch(rng, self.batch_size,
+                                                               self.shard))
             except Exception as exc:  # handed to the consumer, which raises it
-                put(exc)
+                put(queues[widx], exc)
 
         threads = [
             threading.Thread(target=worker, args=(w,), daemon=True)
-            for w in range(self.workers)
+            for w in range(min(self.workers, n_steps))
         ]
         for t in threads:
             t.start()
         try:
-            for _ in range(n_steps):
-                item = q.get()
+            for k in range(n_steps):
+                item = queues[k % self.workers].get()
                 if isinstance(item, Exception):
                     raise item
                 yield item

@@ -83,17 +83,20 @@ class ARVModel(ResNet18F2F):
 
     def forward(self, x, targets=None, semantic_memory=None, train: bool = False,
                 update_memory: bool = True, sample_weights=None,
-                generator: Optional[torch.Generator] = None) -> ModelOutput:
+                generator: Optional[torch.Generator] = None, mesh=None) -> ModelOutput:
         """``sample_weights`` (0/1 per row) marks rows whose EMA memory
         updates are skipped (padded rows; their losses are weighted in
-        train/step.py)."""
-        frame_embed = super().forward(x, train=train)
+        train/step.py). Under a ``mesh`` (parallel/mesh.py) the rows are this
+        rank's block of the global batch: BatchNorm statistics, dropout
+        masks and the EMA memory are the global batch's, and the outputs
+        this rank's rows."""
+        frame_embed = super().forward(x, train=train, mesh=mesh)
         clip_embed = frame_embed.mean(dim=1)
         out = ModelOutput(frame_embed=frame_embed, clip_embed=clip_embed)
         if not train:
             return out
         dt = self.dtype
-        dropped = heads.dropout(clip_embed, self.dropout, True, generator)
+        dropped = heads.dropout(clip_embed, self.dropout, True, generator, mesh)
         out.logits = heads.linear(self.fc, dropped, dt)
         if self.method == "baseline":
             return out
@@ -105,12 +108,13 @@ class ARVModel(ResNet18F2F):
         out.reg_logits = heads.memory_distance_logits(norm_embed, self.visual_memory,
                                                       self.temperature)
         new_memory = heads.ema_memory_update(self.visual_memory, norm_embed, targets,
-                                             self.moving_average, weights=sample_weights)
+                                             self.moving_average, weights=sample_weights,
+                                             mesh=mesh)
         if update_memory:
             # a new tensor, not an in-place write: the reg logits' graph holds the old one
             self.visual_memory = new_memory
         # the non-local block attends the memory AFTER the update (resnet18_va.py:186-199)
-        nled = self.cls_nl(clip_embed, new_memory, train=True, generator=generator)
+        nled = self.cls_nl(clip_embed, new_memory, train=True, generator=generator, mesh=mesh)
         out.nled_logits = heads.linear(self.nled_fc, nled, dt)
 
         if self.method == "vasa":

@@ -37,7 +37,10 @@ class TorchBatchNorm(nn.Module):
     ``split_statistics``. On an H100 each is the faster of the two forward
     and backward on its own dtype (chip_smoke.py's ``train_choices`` line).
     ``train=False`` reads the running statistics and normalizes in the
-    input's dtype."""
+    input's dtype.
+
+    Under a ``mesh`` of more than one rank (parallel/mesh.py) the batch is
+    the global one, as XLA computes it over a JAX mesh: ``cross_rank``."""
 
     def __init__(self, num_features: int, eps: float, momentum: float = 0.1,
                  weight_init: float = 1.0):
@@ -50,7 +53,7 @@ class TorchBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long))
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, mesh=None) -> torch.Tensor:
         dt = x.dtype
         shape = (1, -1) + (1,) * (x.dim() - 2)
         if not train:
@@ -60,6 +63,8 @@ class TorchBatchNorm(nn.Module):
         n = x.numel() // x.shape[1]
         with torch.no_grad():
             self.num_batches_tracked.add_(1)
+        if mesh is not None and mesh.size > 1:
+            return self.cross_rank(x, mesh)
         if dt == torch.float32 and n > 1:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 True, self.momentum, self.eps)
@@ -86,6 +91,71 @@ class TorchBatchNorm(nn.Module):
         inv = (torch.rsqrt(var + self.eps) * self.weight).to(dt)
         return (x - mean.to(dt).view(shape)) * inv.view(shape) + self.bias.to(dt).view(shape)
 
+    def cross_rank(self, x: torch.Tensor, mesh) -> torch.Tensor:
+        """Train mode over the global batch of ``mesh``'s ranks. Each rank's
+        (count, mean, M2) in fp32 (``var_mean``) are gathered and combined
+        in rank order with Chan's parallel formula, so every rank holds the
+        same statistics; a sum of x and x² would lose digits to
+        cancellation. The running variance takes the unbiased variance over
+        the global count. ``_CrossRankNorm``'s backward sums the two
+        per-channel gradient sums over the ranks. Normalizes in the input's
+        dtype, as ``split_statistics`` does."""
+        axes = [0] + list(range(2, x.dim()))
+        n_local = x.numel() // x.shape[1]
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.detach().to(torch.promote_types(x.dtype,
+                                                                         torch.float32)),
+                                       dim=axes, correction=0)
+            local = torch.stack([torch.full_like(mean, float(n_local)), mean, var * n_local])
+            parts = mesh.gather(local[None])  # [world, 3, C]
+            count, mean, m2 = parts[0].unbind(0)
+            for nb, mb, m2b in (p.unbind(0) for p in parts[1:]):
+                total = count + nb
+                delta = mb - mean
+                mean = mean + delta * (nb / total)
+                m2 = m2 + m2b + delta * delta * (count * nb / total)
+                count = total
+            n = float(count[0])
+            var = m2 / n
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
+            self.running_var.mul_(1.0 - m).add_((var * (n / max(n - 1, 1))).to(
+                self.running_var.dtype), alpha=m)
+        return _CrossRankNorm.apply(x, self.weight, self.bias, mean, torch.rsqrt(var + self.eps),
+                                    n, mesh)
+
+
+class _CrossRankNorm(torch.autograd.Function):
+    """y = (x − μ)·γ/σ + β with μ, 1/σ those of the global batch of ``n``
+    rows; the backward of batch normalization, its two per-channel sums
+    (Σ dy and Σ dy·x̂) summed over the ranks for dx. γ's and β's gradients
+    stay this rank's share: the step sums every gradient over the ranks."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mean, invstd, n, mesh):
+        dt = x.dtype
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.n, ctx.mesh = n, mesh
+        inv = (invstd * weight).to(dt)
+        return (x - mean.to(dt).view(shape)) * inv.view(shape) + bias.to(dt).view(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, mean, invstd = ctx.saved_tensors
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        axes = [0] + list(range(2, x.dim()))
+        gf = g.to(mean.dtype)
+        xhat = (x.to(mean.dtype) - mean.view(shape)) * invstd.view(shape)
+        sum_dy = gf.sum(dim=axes)
+        sum_dy_xhat = (gf * xhat).sum(dim=axes)
+        both = ctx.mesh.all_sum(torch.stack([sum_dy, sum_dy_xhat]))
+        n = ctx.n
+        dx = (weight * invstd / n).view(shape) * (
+            n * gf - both[0].view(shape) - xhat * both[1].view(shape))
+        return (dx.to(x.dtype), sum_dy_xhat.to(weight.dtype), sum_dy.to(weight.dtype), None,
+                None, None, None)
+
 
 def linear(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``layer`` (``nn.Linear`` [O,I], or a kernel-1 ``nn.Conv1d`` [O,I,1])
@@ -102,14 +172,24 @@ def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, p: float, train: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None, mesh=None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep where uniform < 1−p, scaled by 1/(1−p);
-    the mask is drawn from ``generator`` (the global generator if None)."""
+    the mask is drawn from ``generator`` (the global generator if None).
+    Under a ``mesh`` of more than one rank the mask is drawn for the global
+    batch (every rank's generator is in the same state) and each rank keeps
+    its rows, so a step on W ranks draws what one process draws for the
+    same batch."""
     if not train or p == 0.0:
         return x
     if p == 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < (1.0 - p)
+    if mesh is not None and mesh.size > 1:
+        n = x.shape[0]
+        u = torch.rand((n * mesh.size,) + tuple(x.shape[1:]), generator=generator,
+                       device=x.device)
+        keep = u[mesh.rank * n:(mesh.rank + 1) * n] < (1.0 - p)
+    else:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < (1.0 - p)
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -136,14 +216,21 @@ def memory_distance_logits(embed: torch.Tensor, memory: torch.Tensor,
 
 @torch.no_grad()
 def ema_memory_update(memory: torch.Tensor, embeds: torch.Tensor, targets: torch.Tensor,
-                      mv: float, weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      mv: float, weights: Optional[torch.Tensor] = None,
+                      mesh=None) -> torch.Tensor:
     """Sequential EMA visual-memory update (resnet18_va.py:186-192) into a
     new tensor: mem[y_i] = normalize(mv·mem[y_i] + (1−mv)·e_i) in batch
     order, so repeated labels compound. No gradient flows. ``weights`` (0/1
     per row) skips the rows whose weight is 0. Rows are indexed with length-1
-    index tensors, so the loop never waits for the device."""
+    index tensors, so the loop never waits for the device. Under a ``mesh``
+    the rows of every rank are gathered in global order and every rank runs
+    the same loop over them, so the memory replicas stay bit-identical."""
     mem = memory.clone()
     embeds = embeds.detach()
+    if mesh is not None and mesh.size > 1:
+        embeds = mesh.gather(embeds)
+        targets = mesh.gather(targets)
+        weights = None if weights is None else mesh.gather(weights)
     for i in range(embeds.shape[0]):
         y = targets[i : i + 1]
         old = mem.index_select(0, y)
@@ -183,7 +270,7 @@ class _NonLocal(nn.Module):
                                TorchBatchNorm(channels, 1e-5, 0.1, weight_init=0.0))
 
     def _attend(self, q: torch.Tensor, kv: torch.Tensor, train: bool,
-                generator: Optional[torch.Generator]) -> torch.Tensor:
+                generator: Optional[torch.Generator], mesh=None) -> torch.Tensor:
         """q [..., N, C] attends kv [..., M, C] → the block's output + q."""
         dt = self.dtype
         theta = linear(self.theta, q, dt)
@@ -194,8 +281,8 @@ class _NonLocal(nn.Module):
         y = torch.relu(param_free_layernorm(attn @ g))
         y = linear(self.W[0], y, dt)
         c = y.shape[-1]
-        y = self.W[1](y.reshape(-1, c), train).reshape(y.shape)
-        return dropout(y, self.dropout, train, generator) + q
+        y = self.W[1](y.reshape(-1, c), train, mesh).reshape(y.shape)
+        return dropout(y, self.dropout, train, generator, mesh) + q
 
 
 class NonLocal1D(_NonLocal):
@@ -204,8 +291,10 @@ class NonLocal1D(_NonLocal):
     (per-channel statistics over the N support rows) → dropout → + x."""
 
     def forward(self, x_support: torch.Tensor, query: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self._attend(x_support, query, train, generator)
+                generator: Optional[torch.Generator] = None, mesh=None) -> torch.Tensor:
+        """``mesh``: the support rows are this rank's block of the global
+        batch (the BatchNorm and the dropout mask are the global batch's)."""
+        return self._attend(x_support, query, train, generator, mesh)
 
 
 class NonLocalND(_NonLocal):

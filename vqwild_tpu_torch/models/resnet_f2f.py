@@ -69,12 +69,12 @@ class BasicBlock(nn.Module):
                 TorchBatchNorm(planes, DOWNSAMPLE_BN_EPS, DOWNSAMPLE_BN_MOMENTUM),
             )
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, mesh=None):
         residual = x
         if self.downsample is not None:
-            residual = self.downsample[1](self.downsample[0](x), train)
-        y = torch.relu(self.bn1(self.conv1(x), train))
-        y = self.bn2(self.conv2(y), train)
+            residual = self.downsample[1](self.downsample[0](x), train, mesh)
+        y = torch.relu(self.bn1(self.conv1(x), train, mesh))
+        y = self.bn2(self.conv2(y), train, mesh)
         return torch.relu(y + residual)
 
 
@@ -100,15 +100,17 @@ class ResNet18F2F(nn.Module):
                 inplanes = planes
             setattr(self, f"layer{li}", nn.Sequential(*blocks))
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, mesh=None):
         """``train=True`` normalizes with batch statistics and updates the
-        running ones; ``train=False`` reads them."""
+        running ones; ``train=False`` reads them. Under a ``mesh`` (train
+        mode) ``x`` is this rank's row block and the statistics are the
+        global batch's (heads.TorchBatchNorm.cross_rank)."""
         b, t = x.shape[0], x.shape[1]
         x = x.reshape((b * t,) + tuple(x.shape[2:])).to(self.dtype).permute(0, 3, 1, 2)
-        x = torch.relu(self.bn1(self.conv1(x), train))
+        x = torch.relu(self.bn1(self.conv1(x), train, mesh))
         x = F.max_pool2d(x, 3, 2, padding=1)
         for li in range(1, len(self.stage_sizes) + 1):
             for block in getattr(self, f"layer{li}"):
-                x = block(x, train)
+                x = block(x, train, mesh)
         return x.mean(dim=(2, 3)).reshape(b, t, -1).to(torch.promote_types(self.dtype,
                                                                           torch.float32))

@@ -49,6 +49,7 @@ from vqwild_tpu_torch.ops.preprocess import (
     normalize_clips_yuv420,
     rgb_to_yuv420_host,
 )
+from vqwild_tpu_torch.parallel.mesh import pad_to_multiple, shard_batch_arrays
 
 log = get_logger("retrieval.features")
 
@@ -56,7 +57,7 @@ log = get_logger("retrieval.features")
 def make_feat_fn(trunk: ResNet18F2F, *, wire: str = "rgb", dtype=torch.float32,
                  bn_eps: float = BN_EPS, folded: bool = True, quant: Optional[str] = None,
                  calib_path: Optional[str] = None,
-                 device: Union[str, torch.device] = "cuda") -> Callable:
+                 device: Union[str, torch.device] = "cuda", mesh=None) -> Callable:
     """Returns f(clips [B,T,s,s,C] uint8-cropped or float) → np [B, C, T].
 
     ``wire="yuv420"`` returns f(y [B,T,s,s] u8, uv [B,T,s/2,s/2,2] u8)
@@ -80,10 +81,21 @@ def make_feat_fn(trunk: ResNet18F2F, *, wire: str = "rgb", dtype=torch.float32,
     instead of calibrating; otherwise the first batch's calibration is saved
     there for the next process. ``"int8_const"`` runs the same graph (eager
     PyTorch has no jit constants to bake the parameters into). ``folded``
-    and ``dtype`` are not read then."""
+    and ``dtype`` are not read then.
+
+    ``mesh`` (parallel/mesh.py) shards each batch's rows over the ranks, as
+    the JAX function shards them over its mesh: the batch pads
+    (edge-repeat) to a multiple of the world size, each rank embeds its row
+    block on the mesh's device (``device`` is not read), the rows are
+    gathered in rank order and the padding cut: every rank returns the
+    whole batch's features. Every rank must call it with the same batch.
+    The int8 trunk does not run under a mesh yet."""
     if wire not in ("rgb", "yuv420"):
         raise ValueError(f"unknown wire format {wire!r}")
-    dev = resolve_device(device)
+    if mesh is not None and quant is not None:
+        raise ValueError(f"quant={quant!r} under a mesh is not ported yet (ROADMAP.md, "
+                         "Slice 6b)")
+    dev = resolve_device(device) if mesh is None else mesh.device
     if quant is not None:
         fwd = _int8_fwd(trunk, wire=wire, quant=quant, calib_path=calib_path, bn_eps=bn_eps,
                         device=dev)
@@ -112,7 +124,17 @@ def make_feat_fn(trunk: ResNet18F2F, *, wire: str = "rgb", dtype=torch.float32,
         with torch.inference_mode():
             return fwd(*tensors).cpu().numpy()
 
-    return feat_fn
+    if mesh is None:
+        return feat_fn
+
+    def feat_fn_sharded(*arrays):
+        n = len(arrays[0])
+        block = shard_batch_arrays(mesh, *(pad_to_multiple(np.asarray(a), mesh.size)[0]
+                                           for a in arrays))
+        with torch.inference_mode():
+            return mesh.gather(fwd(*block))[:n].cpu().numpy()
+
+    return feat_fn_sharded
 
 
 def _int8_fwd(trunk, *, wire, quant, calib_path, bn_eps, device) -> Callable:

@@ -38,8 +38,9 @@ cross-block suppression pass of the blocked NMS is tiled (``tile_elems``
 bounds each temporary), and a chunk's body has no host synchronisation:
 no boolean-mask indexing, ``.item()``, ``nonzero`` or branch on a device
 value; the only host wait is the readback in ``finalize``/``finalize_scan``.
-The JAX module's ``warm_scan`` has no counterpart (nothing to compile), and
-its mesh mode waits for the multi-GPU slice.
+The JAX module's ``warm_scan`` has no counterpart (nothing to compile). Its
+query-sharded mesh mode is not ported yet (ROADMAP.md, Slice 6b): the
+engine runs on one device.
 """
 
 from __future__ import annotations

@@ -8,9 +8,12 @@ L2, and AP/R@N aggregate via MetricAggregator.
 
 The per-query FAISS search + Python dict loop of the reference becomes one
 chunked [Q,G] device computation (ops.ranking), each chunk scored by kernel
-K1. Counterpart of vqwild_tpu/retrieval/trimmed.py; it takes ``device``
-where the JAX class takes ``mesh``, and has no ``compile_warm`` phase
-(eager PyTorch compiles nothing ahead of the rank loop).
+K1. Counterpart of vqwild_tpu/retrieval/trimmed.py; it has no
+``compile_warm`` phase (eager PyTorch compiles nothing ahead of the rank
+loop). Under a ``mesh`` (parallel/mesh.py) every rank runs the evaluation:
+the extractor's ``make_feat_fn(mesh=)`` shards each embed batch, the
+scorer the gallery rows, and every rank returns the same metrics; rank 0
+alone writes the feature cache.
 """
 
 from __future__ import annotations
@@ -50,7 +53,10 @@ class ARVRetrievalTrimmed:
         read_cache: bool = False,
         collect_diagnostics: bool = False,
         device: Union[str, torch.device] = "cuda",
+        mesh=None,
     ):
+        """``device`` holds the gallery; under a ``mesh`` its device does
+        (``device`` is not read)."""
         self.extractor = extractor
         self.eval_split = eval_split
         self.query_num = query_num
@@ -60,7 +66,8 @@ class ARVRetrievalTrimmed:
         self.rank_chunk = rank_chunk
         self.read_cache = read_cache
         self.collect_diagnostics = collect_diagnostics
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.device
         self.possible_classes = set(spec.possible_classes(eval_split))
         self.records: List[VideoRecord] = db.flat(eval_split)
         self.timings: dict = {}
@@ -73,7 +80,8 @@ class ARVRetrievalTrimmed:
             if cached is not None:
                 return cached["feats"]
         feats = self.extractor.extract_trimmed(self.records)
-        self.extractor.save_cache(cache_name, feats=feats)
+        if self.mesh is None or self.mesh.rank == 0:
+            self.extractor.save_cache(cache_name, feats=feats)
         return feats
 
     def evaluation(self) -> dict:
@@ -145,7 +153,7 @@ class ARVRetrievalTrimmed:
             )
             n_chunks = q_rows_all.shape[0]
         with phase(self.timings, "gallery_to_device"):
-            scorer = GalleryScorer(gallery_feats, device=self.device)
+            scorer = GalleryScorer(gallery_feats, device=self.device, mesh=self.mesh)
             scorer.set_columns(gal_labels, gal_vids)
             scorer.set_query_bank(None)
             if self.device.type == "cuda":

@@ -11,6 +11,11 @@ Each name is a directory (as an Orbax checkpoint is) holding one
 from a reference ``.pth.tar`` (a file). A save writes a temporary sibling
 and moves it into place with ``os.replace``: a save killed midway leaves the
 previous checkpoint whole, and its leftover is never read.
+
+Under a ``mesh`` (parallel/mesh.py) every rank holds the same training
+state: rank 0 writes, and every rank waits at a barrier until the file is
+in place, so that any rank may read it next (``--resume`` restores on every
+rank).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Any, Optional, Union
 import torch
 
 from vqwild_tpu_torch.core.logging import get_logger
+from vqwild_tpu_torch.parallel.distributed import barrier
 from vqwild_tpu_torch.train.step import TrainState
 
 log = get_logger("train.checkpoint")
@@ -30,14 +36,23 @@ STATE_FILE = "state.pt"
 
 
 class CheckpointManager:
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, mesh=None):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        self.mesh = mesh
+        self.writer = mesh is None or mesh.rank == 0
+        if self.writer:
+            os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, name: str) -> str:
         return os.path.join(self.directory, name)
 
     def save(self, name: str, payload: Any):
+        if self.writer:
+            self._write(name, payload)
+        if self.mesh is not None:
+            barrier(f"checkpoint/{name}")
+
+    def _write(self, name: str, payload: Any):
         path = self._path(name)
         tmp = path + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)

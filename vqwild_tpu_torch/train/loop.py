@@ -10,6 +10,13 @@ drive it end-to-end on synthetic data.
 On a CUDA device each batch goes up through pinned host memory on a side
 stream while the step before it runs, and the losses are read back once a
 print, never once a step: between prints the host never waits on the card.
+
+Under a ``mesh`` (parallel/mesh.py) every rank runs this loop over the same
+global batches: rows pad (edge-repeat) to a multiple of the world size, a
+0/1 weight marks the padding, and each rank uploads only its row block.
+Validation runs on every rank (the sharded evaluator), the ``best``
+decision is rank 0's score on every rank, and the checkpoint manager lets
+rank 0 write.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 
 from vqwild_tpu_torch.core.logging import get_logger
 from vqwild_tpu_torch.core.meters import AverageMeter, Timer
+from vqwild_tpu_torch.parallel.mesh import rank_rows
 from vqwild_tpu_torch.train.checkpoint import CheckpointManager, last_payload
 from vqwild_tpu_torch.train.step import TrainState
 
@@ -56,6 +64,7 @@ class TrainLoop:
         eval_fn: Optional[Callable] = None,  # (state, epoch) -> score dict
         eval_per_epoch: int = 2,
         ckpt: Optional[CheckpointManager] = None,
+        mesh=None,
         print_freq: int = 100,
         max_steps_per_epoch: Optional[int] = None,
         start_epoch: int = 0,
@@ -83,6 +92,7 @@ class TrainLoop:
         self.eval_fn = eval_fn
         self.eval_per_epoch = eval_per_epoch
         self.ckpt = ckpt
+        self.mesh = mesh
         self.print_freq = print_freq
         self.max_steps = max_steps_per_epoch
         self.start_epoch = start_epoch
@@ -113,20 +123,60 @@ class TrainLoop:
             t.record_stream(compute)
         return out
 
+    def _rows(self, arrays, n: int, axis: int, sharded: bool):
+        """(this rank's row block of each array along ``axis``, its 0/1
+        weights or None): rows pad to the world size's multiple by
+        edge-repeat (parallel/mesh.rank_rows), the padding weighs 0.
+        ``sharded`` arrays already are the rank's block of a global batch
+        of ``n`` real rows (data/triplets.py's shard). No padding, no
+        weights."""
+        world, rank = self.mesh.size, self.mesh.rank
+        idx = rank_rows(n, rank, world)
+        if not sharded:
+            arrays = tuple(np.take(a, idx, axis=axis) for a in arrays)
+        if n % world == 0:
+            return arrays, None
+        return arrays, (rank * len(idx) + np.arange(len(idx)) < n).astype(np.float32)
+
     def _put(self, batch):
         """→ (wire tensors..., labels, weights-or-None) on the state's
-        device. Without a mesh there is no padding, so no weights."""
-        return self._upload(batch.arrays + (batch.labels,)) + (None,)
+        device. Without a mesh there is no padding, so no weights; under a
+        mesh this rank's rows of the padded global batch, and their 0/1
+        weights where rows were padded."""
+        arrays = batch.arrays + (batch.labels,)
+        if self.mesh is None:
+            return self._upload(arrays) + (None,)
+        n = getattr(batch, "global_rows", None)
+        arrays, weights = self._rows(arrays, n or batch.labels.shape[0], 0, n is not None)
+        if weights is None:
+            return self._upload(arrays) + (None,)
+        return self._upload(arrays + (weights,))
 
     def _put_group(self, group):
         """Stack ``len(group)`` loader batches along a leading scan axis →
-        (arrays [K,B,...], labels [K,B], weights-or-None)."""
+        (arrays [K,B,...], labels [K,B], weights [K,B]-or-None); under a mesh
+        the rows pad and split on the second axis."""
         stacked = [
             np.stack([b.arrays[j] for b in group])
             for j in range(len(group[0].arrays))
         ]
         labels = np.stack([b.labels for b in group])
-        return self._upload(tuple(stacked) + (labels,)) + (None,)
+        arrays = tuple(stacked) + (labels,)
+        if self.mesh is None:
+            return self._upload(arrays) + (None,)
+        n = getattr(group[0], "global_rows", None)
+        arrays, weights = self._rows(arrays, n or labels.shape[1], 1, n is not None)
+        if weights is None:
+            return self._upload(arrays) + (None,)
+        return self._upload(arrays + (np.tile(weights, (len(group), 1)),))
+
+    def _agreed(self, score: float) -> float:
+        """Rank 0's ``score`` on every rank: every rank then takes the same
+        ``best`` decision."""
+        if self.mesh is None or self.mesh.size == 1:
+            return score
+        t = torch.tensor([score if self.mesh.rank == 0 else 0.0], dtype=torch.float64)
+        return float(self.mesh.all_sum(t.to(self.mesh.device)).cpu()[0])
 
     def run(self, state: TrainState) -> LoopResult:
         self._dev = next(state.model.parameters()).device
@@ -257,7 +307,7 @@ class TrainLoop:
             )
             if is_eval_epoch:
                 score = self.eval_fn(state, epoch)
-                ap = float(score.get("ap", 0.0))
+                ap = self._agreed(float(score.get("ap", 0.0)))
                 entry["ap"] = ap
                 log.warning("epoch %d validation ap=%.4f (best %.4f)", epoch, ap, best_score)
                 if ap > best_score:

@@ -21,6 +21,17 @@ moves it).
 
 The step consumes cropped uint8 clips (``rgb``) or cropped 4:2:0 planes
 (``yuv420``) and normalizes them on the device (ops/preprocess.py).
+
+Under a ``mesh`` (parallel/mesh.py; one process per GPU) a step on W ranks
+computes what the JAX step computes on a W-device mesh over the same global
+batch: each rank takes its row block, BatchNorm statistics, dropout masks
+and the EMA memory are the global batch's (models/heads.py), each loss is
+this rank's share of the global weighted mean (its weighted sum over the
+global weight sum; the ranking loss over the gathered triplets, a W-th on
+each rank), and the gradients are summed over the ranks before the
+optimizer, in flat buckets, once an update (under ``accum_grad`` on the
+update's call only). The losses come back summed over the ranks, so every
+rank sees the same values and halts on a NaN with the others.
 """
 
 from __future__ import annotations
@@ -105,9 +116,37 @@ def create_train_state(model: ARVModel, tx: OptimizerConfig, seed: int = 0) -> T
                       generator=torch.Generator(device=dev).manual_seed(seed))
 
 
-def _optimizer_update(state: TrainState, grads: List[torch.Tensor]) -> None:
+GRAD_BUCKET_ELEMENTS = 1 << 23  # 32 MB of fp32 gradients an all-reduce
+
+
+def sum_gradients(grads: List[torch.Tensor], mesh) -> None:
+    """In place: each gradient summed over ``mesh``'s ranks, through flat
+    buckets of at most GRAD_BUCKET_ELEMENTS (one all-reduce each; a
+    gradient larger than that is a bucket of its own)."""
+    bucket: List[torch.Tensor] = []
+    size = 0
+
+    def flush():
+        flat = mesh.all_sum(torch.cat([g.reshape(-1) for g in bucket]))
+        at = 0
+        for g in bucket:
+            g.copy_(flat[at:at + g.numel()].view_as(g))
+            at += g.numel()
+
+    for g in grads:
+        if bucket and (size + g.numel() > GRAD_BUCKET_ELEMENTS or g.dtype != bucket[0].dtype):
+            flush()
+            bucket, size = [], 0
+        bucket.append(g)
+        size += g.numel()
+    if bucket:
+        flush()
+
+
+def _optimizer_update(state: TrainState, grads: List[torch.Tensor], mesh=None) -> None:
     """One call's gradients into the running mean; the optimizer steps on
-    the ``accum_grad``-th call with the mean and the scheduled lr."""
+    the ``accum_grad``-th call with the mean and the scheduled lr, after
+    the mean is summed over ``mesh``'s ranks."""
     k, n = state.tx.accum_grad, state.accum_count
     if k > 1:
         if state.grad_acc is None:
@@ -117,6 +156,8 @@ def _optimizer_update(state: TrainState, grads: List[torch.Tensor]) -> None:
         if n + 1 < k:
             return
         grads, state.grad_acc = state.grad_acc, None
+    if mesh is not None:
+        sum_gradients(grads, mesh)
     params = [p for group in state.optimizer.param_groups for p in group["params"]]
     for p, g in zip(params, grads):
         p.grad = g
@@ -129,7 +170,7 @@ def _optimizer_update(state: TrainState, grads: List[torch.Tensor]) -> None:
 
 def make_train_step(model: ARVModel, tx: OptimizerConfig, semantic_memory=None,
                     ranking_weight: float = 0.0, triplet_margin: float = 1.0,
-                    wire: str = "rgb") -> Callable:
+                    wire: str = "rgb", mesh=None) -> Callable:
     """Returns ``step(state, *wire_arrays, labels, weights=None) → (state,
     losses)``: rgb wire (clips_u8 [B,T,s,s,C], labels [B]); yuv420 wire
     (y_u8 [B,T,s,s], uv_u8 [B,T,s/2,s/2,2], labels [B]). Arrays may be
@@ -142,7 +183,11 @@ def make_train_step(model: ARVModel, tx: OptimizerConfig, semantic_memory=None,
     weighted means and the EMA memory skips them (BN batch statistics still
     see them, as in the JAX step). ``ranking_weight > 0`` adds a triplet
     ranking loss over the (anchor, positive, negative) rows of whole
-    triplets, each weighted by its members' least weight."""
+    triplets, each weighted by its members' least weight.
+
+    ``mesh``: the arrays are this rank's row block of the global batch (the
+    loop's ``_put``); see the module docstring. The model must be on the
+    mesh's device."""
     if wire not in ("rgb", "yuv420"):
         raise ValueError(f"unknown wire format {wire!r}")
     method = model.method
@@ -166,9 +211,17 @@ def make_train_step(model: ARVModel, tx: OptimizerConfig, semantic_memory=None,
         else:
             clips = normalize_clips(*arrays, out_dtype=model.dtype)
         out = model(clips, targets=labels, semantic_memory=sem, train=True, sample_weights=w,
-                    generator=state.generator)
+                    generator=state.generator, mesh=mesh)
+        sharded = mesh is not None and mesh.size > 1
+        if sharded:  # the global weight sum: each loss is this rank's share
+            w_sum = (w.sum() if w is not None else
+                     torch.tensor(float(labels.shape[0]), device=dev)).reshape(1)
+            w_sum = mesh.all_sum(w_sum.clone())[0]
 
         def wmean(per_row):
+            if sharded:
+                part = (per_row * w).sum() if w is not None else per_row.sum()
+                return part / torch.clamp_min(w_sum, 1.0)
             if w is None:
                 return per_row.mean()
             return (per_row * w).sum() / torch.clamp_min(w.sum(), 1.0)
@@ -185,17 +238,25 @@ def make_train_step(model: ARVModel, tx: OptimizerConfig, semantic_memory=None,
                 losses["word_loss"] = xent(out.word_logits)
         total = sum(losses.values())
         if ranking_weight > 0.0:
+            # whole triplets: a rank's block may split one, so under a mesh
+            # the rows of every rank are gathered (differentiably)
+            emb, rw = out.clip_embed, w
+            if sharded:
+                emb = mesh.gather(emb)
+                rw = None if w is None else mesh.gather(w)
             # padded rows sit at the tail: truncate to whole triplets
-            n3 = (out.clip_embed.shape[0] // 3) * 3
-            e = out.clip_embed[:n3].reshape(-1, 3, out.clip_embed.shape[-1])
+            n3 = (emb.shape[0] // 3) * 3
+            e = emb[:n3].reshape(-1, 3, emb.shape[-1])
             d_ap = torch.sum((e[:, 0] - e[:, 1]) ** 2, dim=-1)
             d_an = torch.sum((e[:, 0] - e[:, 2]) ** 2, dim=-1)
             per_triplet = torch.relu(d_ap - d_an + triplet_margin)
-            if w is None:
+            if rw is None:
                 rank_loss = per_triplet.mean()
             else:
-                w3 = w[:n3].reshape(-1, 3).amin(dim=1)
+                w3 = rw[:n3].reshape(-1, 3).amin(dim=1)
                 rank_loss = (per_triplet * w3).sum() / torch.clamp_min(w3.sum(), 1.0)
+            if sharded:  # every rank computed the whole loss: each takes a share
+                rank_loss = rank_loss / mesh.size
             losses["ranking_loss"] = rank_loss
             total = total + ranking_weight * rank_loss
         losses["loss"] = total
@@ -203,16 +264,20 @@ def make_train_step(model: ARVModel, tx: OptimizerConfig, semantic_memory=None,
         params = [p for group in state.optimizer.param_groups for p in group["params"]]
         grads = torch.autograd.grad(total, params, allow_unused=True)
         _optimizer_update(state, [torch.zeros_like(p) if g is None else g
-                                  for p, g in zip(params, grads)])
+                                  for p, g in zip(params, grads)], mesh)
         state.step += 1
-        return state, {k: v.detach() for k, v in losses.items()}
+        if mesh is None:
+            return state, {k: v.detach() for k, v in losses.items()}
+        names = list(losses)
+        summed = mesh.all_sum(torch.stack([losses[k].detach().float() for k in names]))
+        return state, dict(zip(names, summed.unbind(0)))
 
     return step_fn
 
 
 def make_scanned_train_step(model: ARVModel, tx: OptimizerConfig, semantic_memory=None,
                             ranking_weight: float = 0.0, triplet_margin: float = 1.0,
-                            wire: str = "rgb") -> Callable:
+                            wire: str = "rgb", mesh=None) -> Callable:
     """K train steps a call (JAX's ``lax.scan`` window, here K eager steps).
 
     Returned fn: ``(state, *wire_arrays, labels, weights=None)`` where every
@@ -220,7 +285,7 @@ def make_scanned_train_step(model: ARVModel, tx: OptimizerConfig, semantic_memor
     loss stacked [K] (the per-step trajectory)."""
     step_fn = make_train_step(model, tx, semantic_memory=semantic_memory,
                               ranking_weight=ranking_weight, triplet_margin=triplet_margin,
-                              wire=wire)
+                              wire=wire, mesh=mesh)
 
     def scanned(state: TrainState, *wire_and_labels, weights=None):
         per_step = []
