@@ -15,8 +15,11 @@ Phases, each printing one JSON line:
                 1,466,542 rows), of the training loop's validation (60
                 against 180) and of the command line's trimmed evaluation
                 (80 against 240), of the int8 server's clip query (1
-                against 240), of a rank's half of the eval gallery in the
-                dist phase (256 against 3,835), and at two ragged ones:
+                against 240), of a rank's half of the galleries in the
+                dist phase (the eval gallery: 256 against 3,835; the
+                tenth's clip gallery: 256 against 5,032; its moment
+                gallery: 128 and 32 against 76,020; the index: 16
+                against 3,835), and at two ragged ones:
                 rtol 1e-5 / atol 1e-3 on N(0,1) data, and
                 top-30 rows identical on a gallery with planted,
                 well-separated neighbours (tie-free by construction). Each
@@ -214,8 +217,20 @@ Phases, each printing one JSON line:
                 (3,835 rows a rank) within 1e-3 of (b), the first batch's
                 sharded embeddings and a sharded extraction of 60
                 validation records (wall and host share against one
-                process) within 1e-4. A child that fails or
-                outlives its deadline fails the phase.
+                process) within 1e-4; (d) under the one-rank mesh, the
+                clip evaluator (all 1,800 queries) and the moment
+                evaluator (256 queries, host and device engines) over
+                seeded fake 512-d features of the first tenth of the clip
+                phase's videos (10,064 clip and 152,039 moment windows),
+                equal to the same evaluations without a mesh; (e) the same
+                evaluations on the two ranks within 1e-3 of those (the
+                device engine takes 16 queries a rank of each chunk of
+                32), and a 7,670-row GalleryIndex's top 30 of 16 queries
+                equal to one process's; (f) the first batch through the
+                int8 trunk on the two ranks: rank 0's calibration equal to
+                one process's on the same batch, one file, the embeddings
+                within 1e-5. A child that fails or outlives its deadline
+                fails the phase.
   (l) cli     — the command line (apps/cli.main, what ``python -m
                 vqwild_tpu_torch`` runs) in this process, right after loop,
                 with the launch counters zeroed just before and read just
@@ -299,9 +314,20 @@ K1_INT8_QUERY = (1, 240, 512)
 # the dist phase's two ranks: a rank's half of the eval phase's gallery
 # under a 256-query chunk (phase_dist checks both)
 K1_DIST_SHARD = (256, 3835, 512)
+# ... and a rank's half of the clip and moment galleries of the first tenth
+# of the clip phase's videos (10,064 windows of 6 s, 152,039 of 1-26 x 5 s,
+# padded to 152,040) under a clip chunk of 256, a host-engine moment chunk
+# of 128 and a device-engine one of 32, and of the 7,670-row index under a
+# bucket of 16 queries (phase_dist checks them against the run)
+K1_DIST_CLIP_SHARD = (256, 5032, 512)
+K1_DIST_MOMENT_SHARD = (128, 76020, 512)
+K1_DIST_MOMENT_DEVICE_SHARD = (32, 76020, 512)
+K1_DIST_INDEX_SHARD = (16, 3835, 512)
+K1_DIST_SHARDS = (K1_DIST_SHARD, K1_DIST_CLIP_SHARD, K1_DIST_MOMENT_SHARD,
+                  K1_DIST_MOMENT_DEVICE_SHARD, K1_DIST_INDEX_SHARD)
 K1_SHAPES = [(16, 7670, 512), (16, 100000, 512), (1, 7670, 512), (5, 130, 512), (300, 1000, 64),
              K1_EVAL_CHUNK, K1_CLIP_CHUNK, K1_MOMENT_CHUNK, K1_MOMENT_DEVICE_CHUNK, K1_LOOP_CHUNK,
-             K1_CLI_CHUNK, K1_CLI_CLIP_CHUNK, K1_CLI_MOMENT_CHUNK, K1_INT8_QUERY, K1_DIST_SHARD]
+             K1_CLI_CHUNK, K1_CLI_CLIP_CHUNK, K1_CLI_MOMENT_CHUNK, K1_INT8_QUERY, *K1_DIST_SHARDS]
 # galleries that cannot sit in L2: their times are held to their bounds
 K1_BEYOND_L2 = ((16, 100000, 512), K1_CLIP_CHUNK, K1_MOMENT_CHUNK, K1_MOMENT_DEVICE_CHUNK)
 # an embed batch (30 clips x 32 frames) in both types, a clip query in fp32,
@@ -379,6 +405,12 @@ DIST_STEPS, DIST_WORLD = 3, 2
 DIST_TOL = TRAIN_VS_CPU_TOL
 DIST_EMBED_ATOL = 1e-4
 DIST_CHILD_TIMEOUT_S = 300
+# the dist phase's clip and moment evaluations: the clip and moment phases'
+# card-against-CPU size, the first tenth of the clip phase's 4,900 videos,
+# every query for the clip regime and 256 for the moment one (both engines);
+# the sharded index: the eval phase's 7,670 rows, 16 queries, top 30
+DIST_MOMENT_QUERIES = 256
+DIST_INDEX_QUERIES, DIST_INDEX_K = 16, 30
 
 
 def emit(obj) -> None:
@@ -2962,9 +2994,10 @@ def k1_plan(ev):
     if ev.resolved_engine != "device":
         return [min(ev.rank_chunk, n - i) for i in range(0, n, ev.rank_chunk)], None
     # the device engine's chunks, padded to whole super-chunks of scan_chunks
+    # (one device; under a mesh each chunk is dispatched on its own)
     b = min(ev.rank_chunk, MOMENT_DEVICE_CHUNK)
     chunks = -(-n // b)
-    if ev.scan_chunks > 0:
+    if ev.scan_chunks > 0 and ev.mesh is None:
         scan = min(ev.scan_chunks, chunks)
         chunks = -(-chunks // scan) * scan
     return [b] * chunks, None
@@ -3342,11 +3375,104 @@ def timed_extraction(feat_fn, db, *, records, clips, frames, crop):
             "host_share": 1.0 - inside[0] / wall}
 
 
+def untrimmed_evals(spec_path, video_frames, keep, *, videos, moment_queries, clips, frames,
+                    feat_dim, device=None, mesh=None):
+    """The dist phase's clip and moment evaluations over seeded fake
+    ``feat_dim`` features of the first ``videos`` gallery videos of the clip
+    phase's DB (on ``device``, or under ``mesh``): ARVRetrievalClip over
+    every query (chunks of 256), ARVRetrievalMoment over the first
+    ``moment_queries`` on the host engine (chunks of 128) and on the device
+    engine (chunks of 32). ``keep`` (a dict) holds the galleries a call
+    built, for the next call to reuse. → {regime: (metrics, timings, wall
+    s, the K1 calls its queries ask for (k1_plan), gallery rows)}."""
+    from vqwild_tpu_torch.data.labels import get_split
+    from vqwild_tpu_torch.data.schema import load_moment_db
+    from vqwild_tpu_torch.retrieval import (
+        ARVRetrievalClip,
+        ARVRetrievalMoment,
+        FeatureExtractor,
+        make_fake_feat_fn,
+    )
+
+    spec = get_split(spec_path)
+    mdb = load_moment_db(spec.moment_db_json)
+    kw = {"device": device} if mesh is None else {"mesh": mesh}
+
+    def extractor(seed):
+        return FeatureExtractor(make_fake_feat_fn(feat_dim, seed=seed),
+                                length_store(video_frames), test_frames=frames,
+                                test_batch_size=clips, fake=True)
+
+    def run(ev, name, gallery):
+        ev.gallery_videos = ev.gallery_videos[:videos]
+        if gallery in keep:
+            ev.build_gallery = lambda: keep[gallery]
+        else:
+            build = ev.build_gallery
+            ev.build_gallery = lambda: keep.setdefault(gallery, build())
+        t0 = time.perf_counter()
+        result = ev.evaluation()
+        wall = time.perf_counter() - t0
+        return name, (result, dict(ev.timings), wall, k1_plan(ev)[0], keep[gallery][0].shape[0])
+
+    out = dict([run(ARVRetrievalClip(mdb, spec, extractor(9), clip_sec=CLIP_SEC, rank_chunk=256,
+                                     **kw), "clip", "clip")])
+    for engine in ("host", "device"):
+        ev = ARVRetrievalMoment(mdb, spec, extractor(10), moment_clip_sec=MOMENT_CLIP_SEC,
+                                max_clips_per_moment=MOMENT_MAX_CLIPS, rank_chunk=128,
+                                engine=engine, **kw)
+        ev.queries = ev.queries[:moment_queries]
+        name, res = run(ev, f"moment_{engine}", "moment")
+        want = "native" if engine == "host" else "device"
+        if ev.resolved_engine != want:
+            raise AssertionError(f"dist: the moment evaluation ran on {ev.resolved_engine!r}, "
+                                 f"not the {want} engine")
+        out[name] = res
+    return out
+
+
+def dist_index(feat_dim, rows, n_queries, k, device=None, mesh=None):
+    """GalleryIndex over ``rows`` seeded random rows (the eval phase's
+    gallery size) on ``device`` or under ``mesh``: the top ``k`` of
+    ``n_queries`` queries, each a row plus noise. → (scores, rows)."""
+    from vqwild_tpu_torch.serve.index import GalleryIndex
+
+    rng = np.random.default_rng(12)
+    g = rng.standard_normal((rows, feat_dim)).astype(np.float32)
+    q = g[rng.choice(rows, n_queries, replace=False)] + 0.1 * rng.standard_normal(
+        (n_queries, feat_dim)).astype(np.float32)
+    meta = [{"video_id": f"v{i}", "label": "l", "retrieval_type": "base"} for i in range(rows)]
+    kw = {"device": device} if mesh is None else {"mesh": mesh}
+    return GalleryIndex(g, meta, **kw).topk(q, k)
+
+
+def dist_int8(dev, nclass, y, uv, calib_path, mesh=None):
+    """make_feat_fn(quant="int8") of the dist phase's seeded va model (its
+    initial weights, the same in every process) on one embed batch of
+    yuv420 planes, on ``dev`` or under ``mesh``, writing its calibration
+    to ``calib_path``: → (the embeddings, ms of the call, the 17 maxima)."""
+    import torch
+
+    from vqwild_tpu_torch.models.quant import load_calibration
+    from vqwild_tpu_torch.retrieval import make_feat_fn
+
+    model = dist_model(dev, nclass).model
+    kw = {"device": dev} if mesh is None else {"mesh": mesh}
+    fn = make_feat_fn(model, wire="yuv420", quant="int8", calib_path=calib_path, **kw)
+    t0 = time.perf_counter()
+    feats = fn(y, uv)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return feats, 1e3 * (time.perf_counter() - t0), load_calibration(calib_path)
+
+
 def dist_child(in_path, out_path):
     """One of the dist phase's ranks on cuda:0 (gloo; the environment names
     the group): the steps over its rows, each after the first from the one
     process's state; the sharded trimmed evaluation; the sharded
-    embedding of the first batch. Writes its results to ``out_path``."""
+    embedding of the first batch; the clip and moment evaluations, the
+    index's top-k and the int8 embedding of the first batch under the
+    mesh. Writes its results to ``out_path``."""
     import torch
 
     from vqwild_tpu_torch.core.device import disable_tf32
@@ -3398,6 +3524,10 @@ def dist_child(in_path, out_path):
     vspec = get_split(d["train_spec"])
     out["extract"] = timed_extraction(make_feat_fn(model, wire="yuv420", mesh=mesh),
                                       load_trimmed_db(vspec.db_json), **d["extract_kw"])
+    out["untrimmed"] = untrimmed_evals(keep={}, mesh=mesh, **d["untrimmed_kw"])
+    out["index"] = dist_index(mesh=mesh, **d["index_kw"])
+    torch.backends.cudnn.deterministic = True  # the calibration's shadow, as the one process's
+    out["int8"] = dist_int8(dev, d["nclass"], y, uv, d["calib_path"], mesh=mesh)
     if cuda:
         torch.cuda.synchronize()
     out["launches"] = {"sq_l2": distance.launches.n, "stem_s2d_pool": stem_pool.launches.n}
@@ -3450,7 +3580,8 @@ def run_dist_children(workdir, world, payload, timeout):
 
 def phase_dist(dev, workdir, *, nclass, triplets, frames, crop, clips, steps, world, val_labels,
                val_per_label, val_noise, eval_labels, eval_per_label, eval_queries_per_label,
-               eval_distractors, feat_dim=512, rank_chunk=256):
+               eval_distractors, untrimmed_videos, untrimmed_queries, untrimmed_labels,
+               moment_queries, index_queries, index_k, feat_dim=512, rank_chunk=256):
     """Data parallelism on torch.distributed (parallel/, TrainLoop(mesh=),
     the sharded trimmed evaluator), with the launch counters zeroed just
     before and read just after, the children's launches added.
@@ -3469,7 +3600,17 @@ def phase_dist(dev, workdir, *, nclass, triplets, frames, crop, clips, steps, wo
     sharded trimmed evaluation against (b)'s metrics (EVAL_METRIC_TOL); the
     first batch embedded through make_feat_fn(mesh=), and 2 embed batches
     of validation records extracted through it (wall and host seconds),
-    against one process (DIST_EMBED_ATOL)."""
+    against one process (DIST_EMBED_ATOL). (d) The clip and moment
+    evaluations (untrimmed_evals: a tenth of the clip phase's
+    ``untrimmed_videos`` videos, seeded fake features, the moment regime on
+    both engines) under the one-rank mesh and without: equal metrics.
+    (e) The same evaluations on (c)'s ranks within EVAL_METRIC_TOL of
+    (d)'s one process, the device engine on ``32 / world`` queries a rank
+    of each chunk; the top ``index_k`` of a GalleryIndex of the eval
+    gallery's size on its ranks equal to one process's. (f) The first batch
+    through the int8 trunk on (c)'s ranks: rank 0's calibration (one file)
+    equal to one process's on the same batch, the embeddings within
+    INT8_CARD_EMBED_ATOL of its."""
     import torch
     import torch.distributed as dist
 
@@ -3504,6 +3645,18 @@ def phase_dist(dev, workdir, *, nclass, triplets, frames, crop, clips, steps, wo
     edb = load_trimmed_db(espec.db_json)
     eval_kw = dict(clips=clips, frames=frames, feat_dim=feat_dim, rank_chunk=rank_chunk)
     extract_kw = dict(records=2 * clips, clips=clips, frames=frames, crop=crop)
+    os.makedirs(os.path.join(workdir, "untrimmed"), exist_ok=True)
+    u_spec, u_frames = write_moment_db(os.path.join(workdir, "untrimmed"), videos=untrimmed_videos,
+                                       queries=untrimmed_queries, labels=untrimmed_labels, seed=8)
+    untrimmed_kw = dict(spec_path=u_spec, video_frames=u_frames, videos=untrimmed_videos // 10,
+                        moment_queries=moment_queries, clips=clips, frames=frames,
+                        feat_dim=feat_dim)
+    index_kw = dict(feat_dim=feat_dim, rows=len(edb.flat("testing")), n_queries=index_queries,
+                    k=index_k)
+    calib_one, calib_mesh = (os.path.join(workdir, sub, "calib.json")
+                             for sub in ("int8_one", "int8_mesh"))
+    for path in (calib_one, calib_mesh):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
     cuda = dev.type == "cuda"
     cudnn_det = torch.backends.cudnn.deterministic
     dist.init_process_group("nccl" if cuda else "gloo",
@@ -3552,10 +3705,15 @@ def phase_dist(dev, workdir, *, nclass, triplets, frames, crop, clips, steps, wo
             runs[label] = {"state": state, "step_ms": ms, "states": states, "grads": grads,
                            "losses": step_losses, "history": result.history}
 
-        # the references, before the launch window: the steps without a mesh
-        # and (b)'s evaluation on one device
+        # the references, before the launch window: the steps without a mesh,
+        # (b)'s evaluation and (d)'s on one device, the index's top-k and the
+        # int8 embedding in one process
         train("plain", None)
         want_b = fake_trimmed(edb, espec, device=dev, **eval_kw).evaluation()
+        keep = {}
+        want_d = untrimmed_evals(device=dev, keep=keep, **untrimmed_kw)
+        want_index = dist_index(device=dev, **index_kw)
+        want_int8 = dist_int8(dev, nclass, batches[0].y, batches[0].uv, calib_one)
         distance.launches.reset()
         stem_pool.launches.reset()
         # ---- the dist path, from here to the counter read at the end ----
@@ -3573,12 +3731,18 @@ def phase_dist(dev, workdir, *, nclass, triplets, frames, crop, clips, steps, wo
         n_queries = eval_labels * eval_queries_per_label
         b_chunks = -(-n_queries // rank_chunk)
 
+        # (d) the clip and moment evaluations under the one-rank mesh
+        got_d = untrimmed_evals(mesh=mesh, keep=keep, **untrimmed_kw)
+        diff_d = {k: tree_max_diff(got_d[k][0], want_d[k][0]) for k in want_d}
+        d_calls = sum(len(r[3]) for r in got_d.values())
+
         # (c) two ranks on this card
         t0 = time.perf_counter()
         children = run_dist_children(workdir, world, {
             "device": str(dev), "nclass": nclass, "batches": [(b.y, b.uv, b.labels) for b in batches],
             "resync": runs["plain"]["states"][:-1], "eval_spec": eval_spec,
-            "eval_kw": eval_kw, "train_spec": train_spec, "extract_kw": extract_kw},
+            "eval_kw": eval_kw, "train_spec": train_spec, "extract_kw": extract_kw,
+            "untrimmed_kw": untrimmed_kw, "index_kw": index_kw, "calib_path": calib_mesh},
             DIST_CHILD_TIMEOUT_S)
         children_s = time.perf_counter() - t0
         if cuda:
@@ -3610,6 +3774,21 @@ def phase_dist(dev, workdir, *, nclass, triplets, frames, crop, clips, steps, wo
                   "one_process": {k: v for k, v in one_extract.items() if k != "feats"},
                   "by_rank": [{k: v for k, v in c["extract"].items() if k != "feats"}
                               for c in children]}
+    diff_e = {k: max(tree_max_diff(c["untrimmed"][k][0], want_d[k][0]) for c in children)
+              for k in want_d}
+    index_rows_equal = all(np.array_equal(c["index"][1], want_index[1]) for c in children)
+    index_score_diff = max(float(np.abs(c["index"][0] - want_index[0]).max()) for c in children)
+    calib_equal = all(c["int8"][2] == want_int8[2] for c in children)
+    calib_rel = max(abs(c["int8"][2][k] - v) / abs(v) for c in children
+                    for k, v in want_int8[2].items())
+    int8_diff = max(float(np.abs(c["int8"][0] - want_int8[0]).max()) for c in children)
+    calib_files = sorted(os.listdir(os.path.dirname(calib_mesh)))
+    gallery_rows = {k: want_d[k][4] for k in want_d}
+    shards = {k: (want_d[k][3][0], -(-gallery_rows[k] // world), feat_dim) for k in want_d}
+    shards["index"] = (index_queries, -(-index_kw["rows"] // world), feat_dim)
+
+    def walls(r):
+        return {k: v[2] for k, v in r.items()}
     out = {"phase": "dist", "steps": steps, "triplets": triplets, "wire": "yuv420",
            "a_world1_nccl": {"bit_equal": not differ, "differ": differ,
                              "step_ms_mesh": runs["mesh"]["step_ms"],
@@ -3630,6 +3809,26 @@ def phase_dist(dev, workdir, *, nclass, triplets, frames, crop, clips, steps, wo
                                 "embed_max_abs_diff": embed_diff, "embed_tol": DIST_EMBED_ATOL,
                                 "sharded_extraction": extraction,
                                 "launches_by_rank": child_launches, "wall_s": children_s},
+           "d_untrimmed_world1": {"metrics_max_abs_diff": diff_d, "gallery_rows": gallery_rows,
+                                  "videos": untrimmed_kw["videos"],
+                                  "moment_queries": moment_queries, "wall_s": walls(got_d),
+                                  "wall_s_one_process": walls(want_d),
+                                  "k1_calls": {k: len(r[3]) for k, r in got_d.items()}},
+           "e_untrimmed_two_ranks": {"metrics_max_abs_diff_vs_one_process": diff_e,
+                                     "tol": EVAL_METRIC_TOL, "k1_shard_by_regime": shards,
+                                     "device_engine_rows_per_rank":
+                                         MOMENT_DEVICE_CHUNK // world,
+                                     "wall_s_by_rank": [walls(c["untrimmed"]) for c in children],
+                                     "timings_rank0": {k: v[1] for k, v in
+                                                       c0["untrimmed"].items()},
+                                     "index_rows_equal": index_rows_equal,
+                                     "index_scores_max_abs_diff": index_score_diff},
+           "f_int8_two_ranks": {"calibration_equal": calib_equal,
+                                "calibration_max_rel_diff": calib_rel, "files": calib_files,
+                                "embed_max_abs_diff": int8_diff,
+                                "embed_tol": INT8_CARD_EMBED_ATOL,
+                                "ms_by_rank": [c["int8"][1] for c in children],
+                                "ms_one_process": want_int8[1]},
            "launches": launches, "launches_own": own_launches,
            "phase_s": time.perf_counter() - t_phase}
     emit(out)
@@ -3644,16 +3843,32 @@ def phase_dist(dev, workdir, *, nclass, triplets, frames, crop, clips, steps, wo
         raise AssertionError(f"dist (c): sharded trimmed metrics differ by {diff_c}")
     if not embed_diff <= DIST_EMBED_ATOL:
         raise AssertionError(f"dist (c): sharded embeddings differ by {embed_diff}")
+    if any(v != 0.0 for v in diff_d.values()):
+        raise AssertionError(f"dist (d): metrics under the one-rank mesh differ by {diff_d}")
+    if not all(v <= EVAL_METRIC_TOL for v in diff_e.values()):
+        raise AssertionError(f"dist (e): the ranks' clip and moment metrics differ by {diff_e}")
+    if not index_rows_equal:
+        raise AssertionError("dist (e): the sharded index's top-k rows differ from one process's")
+    if not calib_equal or calib_files != ["calib.json"]:
+        raise AssertionError(f"dist (f): calibration equal {calib_equal} (largest relative "
+                             f"difference {calib_rel}), files {calib_files}")
+    if not int8_diff <= INT8_CARD_EMBED_ATOL:
+        raise AssertionError(f"dist (f): int8 embeddings differ by {int8_diff}")
     k2_want = 1 + -(-extract_kw["records"] // clips)
-    if cuda and own_launches["sq_l2"] != val["k1_calls"] + b_chunks:
+    if cuda and own_launches["sq_l2"] != val["k1_calls"] + b_chunks + d_calls:
         raise AssertionError(f"dist: this process launched K1 {own_launches['sq_l2']} times; "
-                             f"expected once a chunk of the validation ({val['k1_calls']}) "
-                             f"and of (b) ({b_chunks})")
-    for c in child_launches if cuda else ():
-        if c != {"sq_l2": b_chunks, "stem_s2d_pool": k2_want}:
-            raise AssertionError(f"dist (c): a rank launched {c}; expected K1 once a chunk "
-                                 f"({b_chunks}) and K2 once an embed batch ({k2_want})")
+                             f"expected once a chunk of the validation ({val['k1_calls']}), "
+                             f"of (b) ({b_chunks}) and of (d) ({d_calls})")
+    for r, (c, child) in enumerate(zip(child_launches if cuda else (), children)):
+        k1_want = b_chunks + sum(len(v[3]) for v in child["untrimmed"].values()) + 1
+        want = {"sq_l2": k1_want, "stem_s2d_pool": k2_want + (r == 0)}
+        if c != want:
+            raise AssertionError(f"dist (c): rank {r} launched {c}; expected {want}: K1 once a "
+                                 f"chunk of (c) and (e) and once for the index's query, K2 "
+                                 f"once an embed batch and, on rank 0, once for the int8 "
+                                 f"calibration")
     out["k1_shard"] = (min(rank_chunk, n_queries), len(edb.flat("testing")) // world, feat_dim)
+    out["k1_shards"] = shards
     out["k2_shard"] = (c0["rows_per_rank"] * frames, crop // 2, crop // 2, 6)
     out["k1_chunks"] = val["k1_chunks"]
     return out
@@ -3702,7 +3917,10 @@ def main() -> int:
                           val_per_label=LOOP_VAL_PER_LABEL, val_noise=LOOP_VAL_NOISE,
                           eval_labels=EVAL_LABELS, eval_per_label=EVAL_PER_LABEL,
                           eval_queries_per_label=EVAL_QUERIES_PER_LABEL,
-                          eval_distractors=EVAL_DISTRACTORS)
+                          eval_distractors=EVAL_DISTRACTORS, untrimmed_videos=CLIP_VIDEOS,
+                          untrimmed_queries=CLIP_QUERIES, untrimmed_labels=CLIP_LABELS,
+                          moment_queries=DIST_MOMENT_QUERIES, index_queries=DIST_INDEX_QUERIES,
+                          index_k=DIST_INDEX_K)
         cli = phase_cli(dev, os.path.join(workdir, "cli"), nclass=TRAIN_NCLASS,
                         triplets=TRAIN_TRIPLETS, frames=FRAMES, crop=CROP, clips=CLIPS,
                         workers=LOOP_WORKERS, test_base=CLI_TEST_BASE,
@@ -3743,6 +3961,11 @@ def main() -> int:
         raise AssertionError(f"the dist phase ran K1 at {dist['k1_chunks']} and "
                              f"{dist['k1_shard']}; K1 was timed at {K1_LOOP_CHUNK} and "
                              f"{K1_DIST_SHARD}")
+    dist_shards = {"clip": K1_DIST_CLIP_SHARD, "moment_host": K1_DIST_MOMENT_SHARD,
+                   "moment_device": K1_DIST_MOMENT_DEVICE_SHARD, "index": K1_DIST_INDEX_SHARD}
+    if dist["k1_shards"] != dist_shards:
+        raise AssertionError(f"the dist phase's ranks ran K1 at {dist['k1_shards']}; K1 was "
+                             f"timed at {dist_shards}")
     if dist["k2_shard"] != K2_DIST_SHARD:
         raise AssertionError(f"the dist phase's ranks ran K2 at {dist['k2_shard']}; K2 was "
                              f"timed at {K2_DIST_SHARD}")
@@ -3763,6 +3986,8 @@ def main() -> int:
     k1_cli_moment = next(r for r in k1 if tuple(r["shape"]) == K1_CLI_MOMENT_CHUNK)
     k1_int8 = next(r for r in k1 if tuple(r["shape"]) == K1_INT8_QUERY)
     k1_dist = next(r for r in k1 if tuple(r["shape"]) == K1_DIST_SHARD)
+    k1_dist_by = {k: next(r for r in k1 if tuple(r["shape"]) == v)
+                  for k, v in dist_shards.items()}
     k2_main = k2[0]  # an embed batch in fp32, the serving dtype
     k2_dist = next(r for r in k2 if tuple(r["shape"]) == K2_DIST_SHARD)
     paths = {"serve": serve["launches"], "eval": evald["launches"], "int8": int8["launches"],
@@ -3790,6 +4015,8 @@ def main() -> int:
          "cli_moment_chunk": {k: k1_cli_moment[k] for k in chunk_keys},
          "int8_query": {k: k1_int8[k] for k in chunk_keys},
          "dist_shard": {k: k1_dist[k] for k in chunk_keys},
+         **{f"dist_{name}_shard": {k: r[k] for k in chunk_keys}
+            for name, r in k1_dist_by.items()},
          "cli_launches_by_regime": cli["k1_launches"]},
         {"name": "stem_s2d_pool", "route": "cuda", "source": "vqwild_tpu_torch/csrc/stem_pool.cu",
          "replaces": "vqwild_tpu/ops/pallas_kernels.py:152",

@@ -12,10 +12,14 @@ the CPU with gloo.
   run on fewer rows a rank, so in another order).
 - ``python -m torch.distributed.run --nproc_per_node 2 -m
   vqwild_tpu_torch --device cpu --debug`` trains va on 6 rows a step (3 a
-  rank) to the checkpoint one process trains (TORCHRUN_*), takes one step
-  of 42 rows to the one process's checkpoint within one step's tolerances
-  (ONE_STEP_*), and refuses
-  ``--eval_all`` and ``--trunk_int8`` before anything runs.
+  rank) to the checkpoint one process trains (TORCHRUN_*) and ends in the
+  evaluation of all three regimes, takes one step of 42 rows to the one
+  process's checkpoint within one step's tolerances (ONE_STEP_*);
+  ``--evaluate --eval_all`` of one checkpoint, fp32 and ``--trunk_int8``
+  (each run beside a copy of it, so that each calibrates), gives the one
+  process's metrics within METRIC_TOL (measured: equal) and, under int8,
+  the one process's calibration file, written once; and
+  ``--trunk_int8_const`` is refused before anything runs.
 
 The ranks run in spawned processes that import no JAX
 (tests/test_torch_parallel.spawn).
@@ -23,6 +27,7 @@ The ranks run in spawned processes that import no JAX
 
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -329,23 +334,83 @@ class TestTorchrun:
                 assert float(d.max()) <= ONE_STEP_BUFFER_ATOL, k
         assert n_off <= ONE_STEP_MAX_OFF * n_all, (n_off, n_all)
 
-    def test_rank0_writes_and_evaluates_trimmed_only(self, cli_runs):
-        """One run directory, one log; the final evaluation is the trimmed
-        one (clip and moment wait for the mesh port), the one process's all
-        three."""
+    def test_rank0_writes_and_evaluates_all_three(self, cli_runs):
+        """One run directory, one log, one feature cache; the final
+        evaluation covers the three regimes, as the one process's does."""
         run = cli_runs.d / "run2"
         assert sorted(os.listdir(run / "checkpoints")) == ["best", "last"]
         assert [p for p in os.listdir(run) if p.startswith("log.log")] == ["log.log"]
-        assert set(_read(str(run), "metrics", "evaluation.json")) == {"trimmed"}
-        assert set(cli_runs.one_result) == {"trimmed", "clip", "moment"}
-        assert "Slice 6b" in cli_runs.out
+        assert len([p for p in os.listdir(run) if p.startswith("cache-")]) == 1
+        want = {"trimmed", "clip", "moment"}
+        assert set(_read(str(run), "metrics", "evaluation.json")) == want
+        assert set(cli_runs.one_result) == want
 
-    @pytest.mark.parametrize("flags", [["--evaluate", "--eval_all"],
-                                       ["--evaluate", "--trunk_int8"]])
-    def test_refusals_before_anything_runs(self, cli_runs, flags):
-        run = cli_runs.d / ("refused" + "".join(f[2:6] for f in flags))
-        args = cli_runs.args + ["--run_dir", str(run), *flags]
+    def test_int8_const_refused_before_anything_runs(self, cli_runs):
+        run = cli_runs.d / "refused_int8_const"
+        args = cli_runs.args + ["--run_dir", str(run), "--evaluate", "--trunk_int8_const"]
         rc, out = torchrun(args, cli_runs.d, cli_runs.d / "refused.log")
         assert rc != 0
-        assert "not ported to several ranks yet" in out and "Slice 6b" in out
+        assert "single-device only" in out
         assert not run.exists()
+
+
+def _numbers(tree, path=""):
+    """{path: number} of a metrics tree."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_numbers(v, f"{path}/{k}"))
+    elif isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        out[path] = float(tree)
+    return out
+
+
+EVAL_FLAGS = {"fp32": ["--evaluate", "--eval_all"],
+              "int8": ["--evaluate", "--eval_all", "--trunk_int8"]}
+
+
+@pytest.fixture(scope="module", params=sorted(EVAL_FLAGS))
+def eval_runs(request, cli_runs):
+    """``--evaluate`` of the one process's ``best`` on 2 ranks under
+    torchrun and in one process, each from a copy of the checkpoint
+    directory (the int8 calibration file goes beside it)."""
+    from vqwild_tpu_torch.apps import cli
+
+    d, mode = cli_runs.d, request.param
+    out = {}
+    for who in ("two", "one"):
+        ckpt = d / f"best_{mode}_{who}"
+        shutil.copytree(d / "run1" / "checkpoints" / "best", ckpt)
+        args = cli_runs.args + EVAL_FLAGS[mode] + ["--test_load", str(ckpt),
+                                                    "--run_dir", str(d / f"eval_{mode}_{who}")]
+        if who == "two":
+            rc, log = torchrun(args, d, d / f"eval_{mode}.log")
+            assert rc == 0, log[-6000:]
+        else:
+            cli.main(args)
+        out[who] = SimpleNamespace(ckpt=ckpt, result=_read(str(d / f"eval_{mode}_{who}"),
+                                                          "metrics", "evaluation.json"))
+    return SimpleNamespace(mode=mode, **out)
+
+
+class TestTorchrunEvaluate:
+    def test_all_three_regimes_against_the_one_process(self, eval_runs):
+        two, one = eval_runs.two.result, eval_runs.one.result
+        assert set(two) == set(one) == {"trimmed", "clip", "moment"}
+        assert two["moment"]["engine"] == one["moment"]["engine"]
+        g, w = _numbers(two), _numbers(one)
+        assert set(g) == set(w) and len(w) > 60
+        worst = max(w, key=lambda k: abs(g[k] - w[k]))
+        assert abs(g[worst] - w[worst]) <= METRIC_TOL, (worst, g[worst], w[worst])
+
+    def test_int8_calibration_file_written_once(self, eval_runs):
+        """Rank 0 calibrates once from the first batch of 4 clips (2 a rank,
+        no padding) and writes the file: the one process's, byte for byte."""
+        files = {who: sorted(p for p in os.listdir(ns.ckpt) if "int8_calib" in p)
+                 for who, ns in (("two", eval_runs.two), ("one", eval_runs.one))}
+        if eval_runs.mode == "fp32":
+            assert files == {"two": [], "one": []}
+            return
+        assert len(files["two"]) == len(files["one"]) == 1
+        two = (eval_runs.two.ckpt / files["two"][0]).read_text()
+        assert two == (eval_runs.one.ckpt / files["one"][0]).read_text()

@@ -9,8 +9,24 @@ finds that file under the same name and loads it, so both packages run the
 int8 graph from the same scales (tests/test_torch_quant.py holds the graph
 itself to JAX's). A file of its own: JAX's int8 evaluation of the three
 regimes takes ~30 s here.
+
+JAX's command line runs on one device here, as the port's runs in one
+process (on tests/conftest.py's 8 virtual CPU devices its ``cli.main``
+would build a mesh, vqwild_tpu/apps/cli.py:425), and the port's CPU scores go
+through JAX's own expansion (``jax_expansion``). The tiny DB's int8
+galleries hold windows and clips whose scores for a query lie within a few
+fp32 ulps of each other, so two fp32 evaluations that round the expansion
+‖q‖²+‖g‖²−2q·gᵀ differently order some of them apart: torch's CPU matmul
+and row sums round otherwise than XLA's, and so does XLA on a mesh
+against XLA on one device. ``test_near_ties_rank_apart_by_the_rounding``
+pins a checkpoint that shows both; drawing the BN variances afresh each
+run and comparing the port's own CPU scores with JAX's on its 8-device
+mesh failed in 3 of 10 runs. With the scores rounded
+alike every metric is held at INT8_METRIC_TOL. The port's CPU expansion
+itself is held to JAX's in tests/test_torch_distance.py.
 """
 
+import contextlib
 import json
 import os
 
@@ -22,11 +38,17 @@ from vqwild_tpu_torch.apps import cli
 from vqwild_tpu_torch.models.arv import build_model
 from vqwild_tpu_torch.models.convert import save_reference_checkpoint
 from vqwild_tpu_torch.models.quant import calibration_path, load_calibration
+from vqwild_tpu_torch.ops import distance
 
 # every metric of the three regimes: the same int8 activations, embeddings
-# within ~1e-8 (the L2 norm's summation order), and the ranks they give
-# equal unless two gallery rows tie to that level
+# within ~1e-8 (the L2 norm's summation order), and, from scores rounded
+# alike, the same ranks
 INT8_METRIC_TOL = 1e-6
+# a checkpoint's BN variances (a torch.Generator seed) on which the port's
+# own CPU scores rank moment windows apart from JAX's one-device scores,
+# and JAX's 8-device evaluation departs from its one-device one (each by
+# 1.5e-4, /moment/map05/class_map_dict/juggling; JAX 0.9.0 on the CPU)
+PINNED_SEED = 106
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -55,38 +77,115 @@ def _numbers(tree, path=""):
     return out
 
 
-def test_evaluate_eval_all_int8_equals_jax(tiny_arv, tmp_path):
+def _flags(tiny_arv, tmp_path):
     from tests.test_torch_data import write_split_spec
-    from vqwild_tpu.apps import cli as jax_cli
 
     spec = write_split_spec(tiny_arv, tmp_path / "spec.json")
-    tiny = ["--frame_store", "synthetic", "--data_root", tiny_arv["root"], "--meta_split", spec,
+    return ["--frame_store", "synthetic", "--data_root", tiny_arv["root"], "--meta_split", spec,
             "--input_size", "32", "--test_frame", "2", "--test_batch_size", "4",
             "--workers", "0", "--method", "baseline", "--evaluate", "--eval_all",
             "--wire", "yuv420", "--trunk_int8"]
+
+
+def _checkpoint(tiny, tmp_path, generator=None) -> str:
+    """A seeded baseline model whose BN variances are drawn off their init
+    (from ``generator``, or torch's global generator), as best.pth.tar."""
     cfg = cli.parse(tiny + ["--device", "cpu"])[0]
     model = build_model(cfg.model, "cpu", seed=4)
     with torch.no_grad():  # BN statistics off their init
         for name, buf in model.named_buffers():
             if name.endswith("running_var"):
-                buf.uniform_(0.5, 1.5)
+                buf.uniform_(0.5, 1.5, generator=generator)
     pth = str(tmp_path / "best.pth.tar")
     save_reference_checkpoint(pth, model, "baseline")
+    return pth
+
+
+def _jax_main(argv, devices):
+    """JAX's ``cli.main`` seeing only the first ``devices`` devices (one: no
+    mesh; conftest.py's 8: its mesh)."""
+    import jax
+
+    from vqwild_tpu.apps import cli as jax_cli
+
+    every = jax.devices
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax, "devices", lambda *a, **kw: every(*a, **kw)[:devices])
+        return jax_cli.main(argv)
+
+
+@contextlib.contextmanager
+def jax_expansion():
+    """The port's CPU scores (``ops.distance.pairwise_sq_l2``, K1's plain
+    version) through JAX's jitted expansion, so that both packages rank
+    the same fp32 scores."""
+    import jax
+
+    from vqwild_tpu.ops.distance import pairwise_sq_l2 as jax_pairwise_sq_l2
+
+    jitted = jax.jit(jax_pairwise_sq_l2)
+
+    def pairwise_sq_l2(q, g):
+        return torch.from_numpy(np.array(jitted(q.float().numpy(), g.float().numpy())))
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(distance, "pairwise_sq_l2", pairwise_sq_l2)
+        yield
+
+
+def _port(tiny, pth, run_dir):
+    """The port's --evaluate: the first run calibrates and writes the file
+    beside the checkpoint, a later one loads it."""
     calib = calibration_path(pth)
-
-    got = cli.main(tiny + ["--test_load", pth, "--device", "cpu",
-                           "--run_dir", str(tmp_path / "port")])
+    had = os.path.exists(calib) and load_calibration(calib)
+    got = cli.main(tiny + ["--test_load", pth, "--device", "cpu", "--run_dir", str(run_dir)])
     written = load_calibration(calib)  # the first batch's, beside the checkpoint
-    assert len(written) == 17
-    caches = [p for p in os.listdir(tmp_path / "port") if p.startswith("cache-")]
+    assert len(written) == 17 and had in (False, written)
+    caches = [p for p in os.listdir(run_dir) if p.startswith("cache-")]
     assert len(caches) == 1 and "-torch-yuv420-int8-" in caches[0]
+    return got
 
-    want = jax_cli.main(tiny + ["--test_load", pth, "--run_dir", str(tmp_path / "jax")])
-    assert load_calibration(calib) == written  # JAX loaded it, wrote nothing
+
+def _jax(tiny, pth, run_dir, devices=1):
+    """JAX's --evaluate from the port's calibration file (it writes none)."""
+    calib = calibration_path(pth)
+    written = load_calibration(calib)
+    want = _jax_main(tiny + ["--test_load", pth, "--run_dir", str(run_dir)], devices)
+    assert load_calibration(calib) == written
+    return want
+
+
+def _worst(got, want):
+    """→ (the largest |got − want| over every metric, its path, got, want)."""
     assert set(got) == set(want) == {"trimmed", "clip", "moment"}
     g, w = _numbers(got), _numbers(want)
     assert set(w) <= set(g) and len(w) > 60
-    diffs = {k: abs(g[k] - w[k]) for k in w}
-    worst = max(diffs, key=diffs.get)
-    assert diffs[worst] <= INT8_METRIC_TOL, (worst, g[worst], w[worst])
     assert all(np.isfinite(v) for v in g.values())
+    worst = max(w, key=lambda k: abs(g[k] - w[k]))
+    return abs(g[worst] - w[worst]), worst, g[worst], w[worst]
+
+
+def test_evaluate_eval_all_int8_equals_jax(tiny_arv, tmp_path):
+    tiny = _flags(tiny_arv, tmp_path)
+    pth = _checkpoint(tiny, tmp_path)
+    with jax_expansion():
+        got = _port(tiny, pth, tmp_path / "port")
+    worst = _worst(got, _jax(tiny, pth, tmp_path / "jax"))
+    assert worst[0] <= INT8_METRIC_TOL, worst
+
+
+def test_near_ties_rank_apart_by_the_rounding(tiny_arv, tmp_path):
+    """On the pinned checkpoint: with its own CPU scores the port's metrics
+    depart from JAX's one-device ones, and so do JAX's own on its 8-device
+    mesh; with JAX's expansion the port's are JAX's one-device metrics
+    within INT8_METRIC_TOL."""
+    tiny = _flags(tiny_arv, tmp_path)
+    pth = _checkpoint(tiny, tmp_path, torch.Generator().manual_seed(PINNED_SEED))
+    own = _port(tiny, pth, tmp_path / "port")
+    with jax_expansion():
+        got = _port(tiny, pth, tmp_path / "port_jax_expansion")
+    one = _jax(tiny, pth, tmp_path / "jax")
+    mesh = _jax(tiny, pth, tmp_path / "jax_mesh", devices=8)
+    assert _worst(got, one)[0] <= INT8_METRIC_TOL, _worst(got, one)
+    assert _worst(own, one)[0] > INT8_METRIC_TOL
+    assert _worst(mesh, one)[0] > INT8_METRIC_TOL

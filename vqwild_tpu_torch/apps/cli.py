@@ -29,14 +29,18 @@ Several GPUs, one process each (parallel/distributed.py, parallel/mesh.py):
 Where the JAX command line builds a data mesh over its devices, this one
 builds it over the ranks (world size > 1): training runs the global batch
 of ``--batch_size`` triplets over the ranks (each loads, uploads and
-computes its row block), validation and the trimmed evaluation shard each
-embed batch and the gallery rows, and ``--device cuda`` is
-``cuda:LOCAL_RANK``. Rank 0 alone writes the run directory, its log,
-checkpoints, metrics and exports. The clip and moment evaluators and the
-int8 trunk are not ported to a mesh yet (ROADMAP.md, Slice 6b): with a
-world size above 1, ``--eval_clip``, ``--eval_moment``, ``--eval_all`` and
-``--trunk_int8[_const]`` are refused before anything runs, and the
-evaluation after training is the trimmed one.
+computes its row block); validation and the three evaluators shard each
+embed batch and the gallery rows, and every rank ranks the whole gallery
+from the gathered score columns (the moment device engine splits each
+chunk's queries over the ranks); ``--trunk_int8`` calibrates once from
+the global first batch on rank 0 (validation: each time; ``--evaluate``:
+the checkpoint's calibration file, written by rank 0 when it is not there
+yet); training ends in the ``--eval_all`` evaluation, as with one process;
+and ``--device cuda`` is ``cuda:LOCAL_RANK``. Rank 0 alone writes the run
+directory, its log, checkpoints, metrics, feature caches, calibration
+files and exports. ``--trunk_int8_const`` runs on one device only, as in
+the JAX package, and is refused with a world size above 1 before anything
+runs.
 """
 
 from __future__ import annotations
@@ -456,19 +460,6 @@ def _feat_fn(cfg, model, device, calib_path: Optional[str] = None, mesh=None):
                         calib_path=calib_path, device=device, mesh=mesh)
 
 
-def refuse_on_a_mesh(cfg, extra) -> None:
-    """What a world size above 1 cannot run yet, refused before anything
-    runs (nothing falls back to one rank)."""
-    asked = [flag for flag, on in (("--eval_clip", extra.get("eval_clip")),
-                                   ("--eval_moment", extra.get("eval_moment")),
-                                   ("--eval_all", extra.get("eval_all")),
-                                   ("--trunk_int8", cfg.eval.trunk_quant is not None)) if on]
-    if asked:
-        raise SystemExit(f"{', '.join(asked)}: not ported to several ranks yet (ROADMAP.md, "
-                         "Slice 6b: the clip and moment evaluators and the int8 trunk under a "
-                         "mesh); run them with one process")
-
-
 def run_evaluation(cfg, extra, run_dir: RunDir, mesh=None):
     from vqwild_tpu_torch.retrieval import (
         ARVRetrievalClip,
@@ -480,7 +471,10 @@ def run_evaluation(cfg, extra, run_dir: RunDir, mesh=None):
     device = resolve_device(extra.get("device", "cuda")) if mesh is None else mesh.device
     spec, db, store, model, _, _ = build_stack(cfg, device)
     if cfg.eval.fake_features:
-        feat_fn = make_fake_feat_fn(cfg.model.feat_dim)
+        # under a mesh every rank draws the same features (one seed): each
+        # rank builds the whole gallery and holds a block of it
+        feat_fn = make_fake_feat_fn(cfg.model.feat_dim,
+                                    seed=None if mesh is None else cfg.train.manual_seed)
     else:
         load_variables(extra.get("test_load", ""), cfg.model.method, model)
         feat_fn = _feat_fn(cfg, model, device, _int8_calib_path(extra.get("test_load", "")),
@@ -540,6 +534,7 @@ def run_evaluation(cfg, extra, run_dir: RunDir, mesh=None):
                 read_cache=cfg.eval.read_cache_feat,
                 collect_diagnostics=cfg.eval.collect_diagnostics,
                 device=device,
+                mesh=mesh,
             ).evaluation()
         if want_moment:
             mom_ev = ARVRetrievalMoment(
@@ -563,6 +558,7 @@ def run_evaluation(cfg, extra, run_dir: RunDir, mesh=None):
                 score_readback_dtype=cfg.eval.score_readback_dtype,
                 engine=cfg.eval.moment_engine,
                 scan_chunks=cfg.eval.moment_scan_chunks,
+                mesh=mesh,
             )
             results["moment"] = mom_ev.evaluation()
             # artifacts must be reproducible from their own metadata
@@ -697,13 +693,9 @@ def run_training(cfg, extra, run_dir: RunDir, mesh=None):
         ),
     )
 
-    # final: reload best, evaluate on testing with all regimes (main.py:606-617);
-    # under a mesh the trimmed regime only (refuse_on_a_mesh)
+    # final: reload best, evaluate on testing with all regimes (main.py:606-617)
     if ckpt.exists("best"):
-        if mesh is not None:
-            log.warning("evaluating the trimmed regime only: the clip and moment evaluators "
-                        "run with one process (ROADMAP.md, Slice 6b)")
-        extra = dict(extra, evaluate=True, eval_all=mesh is None,
+        extra = dict(extra, evaluate=True, eval_all=True,
                      test_load=os.path.join(run_dir.checkpoint_dir(), "best"))
         final_cfg = dataclasses.replace(
             cfg, eval=dataclasses.replace(cfg.eval, eval_split="testing", read_cache_feat=False)
@@ -753,7 +745,10 @@ def main(argv=None):
         disable_tf32()
     try:
         if mesh is not None:
-            refuse_on_a_mesh(cfg, extra)
+            if cfg.eval.trunk_quant == "int8_const":
+                # as the JAX package's make_feat_fn, before anything runs
+                raise SystemExit("--trunk_int8_const: quant='int8_const' is single-device "
+                                 "only; use --trunk_int8 with several ranks")
             if mesh.rank != 0:  # rank 0 logs; the others say only what goes wrong
                 get_logger().setLevel(logging.WARNING)
         if extra.get("export_torch"):

@@ -24,7 +24,9 @@ leaves its int8 convs to XLA. ``_iconv_plain`` (float64 ``F.conv2d``, exact
 because |Σ| ≤ 127²·4608 < 2^53) is for the tests and the card check only.
 Calibration (``calibrate_trunk``) records per-tensor maxima over one batch
 through an fp32 shadow of the folded trunk, whose stem block is kernel K2
-(ops.stem_pool.stem_s2d_pool).
+(ops.stem_pool.stem_s2d_pool). Under a mesh (``calibrate_trunk_on_mesh``)
+rank 0 calibrates on the whole global batch and broadcasts the maxima, as
+the JAX package calibrates once from the global batch of its mesh.
 
 ``F.conv2d`` on int8 tensors returns int8 sums that silently wrap: it never
 appears on the int8 path.
@@ -36,7 +38,7 @@ import hashlib
 import json
 import os
 import uuid
-from typing import Any, Callable, Dict, Mapping, Optional, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -55,6 +57,7 @@ from vqwild_tpu_torch.models.fold import (
 )
 from vqwild_tpu_torch.models.resnet_f2f import BN_EPS
 from vqwild_tpu_torch.ops.stem_pool import stem_s2d_pool
+from vqwild_tpu_torch.parallel.distributed import barrier
 
 _STAGES = ((1, 64), (2, 128), (3, 256), (4, 512))
 
@@ -315,6 +318,35 @@ def calibrate_trunk(state_dict: Mapping[str, Any], y_u8, uv_u8, *, bn_eps: float
     # in sorted key order, as the JAX package's jitted dict comes back: the
     # two packages then write the same calibration file for the same maxima
     return dict(sorted(zip(maxes, values)))
+
+
+def calibration_keys() -> List[str]:
+    """The 17 maxima ``calibrate_trunk`` returns, in its (sorted) order."""
+    return sorted(["stem_out"] + [f"layer{li}_{bi}_{part}" for li, _ in _STAGES
+                                  for bi in range(2) for part in ("mid", "out")])
+
+
+def calibrate_trunk_on_mesh(state_dict: Mapping[str, Any], y_u8, uv_u8, mesh, *,
+                            bn_eps: float = BN_EPS,
+                            calib_path: Optional[str] = None) -> Dict[str, float]:
+    """``calibrate_trunk`` once for the ranks of ``mesh``
+    (parallel/mesh.py): rank 0 runs the fp32 shadow on its device over the
+    whole global batch (every rank passes the same planes: the batch edge-
+    padded to the world size), broadcasts the maxima, writes ``calib_path``
+    alone, and then every rank passes a barrier, so no rank looks for the
+    file before it is whole. Every rank returns the same dict."""
+    keys = calibration_keys()
+    maxima = torch.zeros(len(keys), dtype=torch.float64, device=mesh.device)
+    if mesh.rank == 0:
+        calib = calibrate_trunk(state_dict, y_u8, uv_u8, bn_eps=bn_eps, device=mesh.device)
+        assert list(calib) == keys, list(calib)
+        maxima.copy_(torch.tensor(list(calib.values()), dtype=torch.float64))
+    calib = dict(zip(keys, mesh.broadcast(maxima, src=0).tolist()))
+    if calib_path is not None:
+        if mesh.rank == 0:
+            save_calibration(calib_path, calib)
+        barrier("int8_calibration")
+    return calib
 
 
 def quantize_trunk(state_dict: Mapping[str, Any], calib: Dict[str, float], *,

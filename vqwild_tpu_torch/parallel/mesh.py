@@ -5,9 +5,10 @@ global batch over the ``data`` axis of a ``jax.sharding.Mesh`` and lets XLA
 insert the gradient sums and the gallery gathers. Here each rank is one
 process holding one contiguous row block of the global batch, and the
 port's modules call the collectives below where XLA would insert them:
-``all_sum`` (gradients, loss shares, BatchNorm's gradient sums) and
+``all_sum`` (gradients, loss shares, BatchNorm's gradient sums),
 ``gather`` (BatchNorm's statistics, the EMA memory's rows, the ranking
-loss's triplets, embeddings and score columns).
+loss's triplets, embeddings, score columns and the moment engine's
+per-query rows) and ``broadcast`` (rank 0's int8 calibration).
 
 ``batch_sharding``, ``replicated_sharding`` and ``scan_batch_sharding``
 have no counterpart: a sharding is JAX's description of where an array
@@ -56,6 +57,13 @@ class Mesh:
         """In place: the sum of ``t`` over the ranks (returns ``t``)."""
         if self.group is not None:
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+        return t
+
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """In place: rank ``src``'s ``t`` on every rank (returns ``t``;
+        every rank passes a tensor of the same shape and dtype)."""
+        if self.group is not None:
+            dist.broadcast(t, src=src, group=self.group)
         return t
 
     def gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:

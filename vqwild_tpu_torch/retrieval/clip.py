@@ -8,9 +8,14 @@ the trimmed query clips, held in a query bank of their own on the device.
 tp = clip_label == query label.
 
 Counterpart of vqwild_tpu/retrieval/clip.py. As the port's trimmed
-evaluator, it takes ``device`` where the JAX class takes ``mesh``, has no
-``compile_warm`` phase (eager PyTorch compiles nothing ahead of the rank
-loop), and each rank chunk is scored by kernel K1 on a CUDA tensor.
+evaluator, it has no ``compile_warm`` phase (eager PyTorch compiles nothing
+ahead of the rank loop), and each rank chunk is scored by kernel K1 on a
+CUDA tensor. Under a ``mesh`` (parallel/mesh.py) every rank runs the
+evaluation: the extractor's ``make_feat_fn(mesh=)`` shards each embed
+batch, so every rank builds the whole gallery; the scorer holds the
+rank's block of the gallery rows and gathers the score columns, so every
+rank ranks the whole gallery and returns the same metrics; rank 0 alone
+writes the feature cache.
 """
 
 from __future__ import annotations
@@ -67,7 +72,10 @@ class ARVRetrievalClip:
         check_completeness: bool = True,
         collect_diagnostics: bool = False,
         device: Union[str, torch.device] = "cuda",
+        mesh=None,
     ):
+        """``device`` holds the gallery; under a ``mesh`` its device does
+        (``device`` is not read)."""
         self.extractor = extractor
         self.clip_sec = clip_sec
         self.fps = fps
@@ -80,7 +88,8 @@ class ARVRetrievalClip:
         self.read_cache = read_cache
         self.check_completeness = check_completeness
         self.collect_diagnostics = collect_diagnostics
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.device
         # clip/moment eval always uses train+test labels (:671-674)
         self.possible_classes = set(spec.possible_classes("testing"))
         self.timings: dict = {}
@@ -135,9 +144,10 @@ class ARVRetrievalClip:
                 )
             off += w
         labels = labels_arr.astype(str)
-        self.extractor.save_cache(
-            "clip_gallery.npz", feats=feats, labels=labels, video_idx=vidx, locs=locs_arr
-        )
+        if self.mesh is None or self.mesh.rank == 0:
+            self.extractor.save_cache(
+                "clip_gallery.npz", feats=feats, labels=labels, video_idx=vidx, locs=locs_arr
+            )
         return feats, labels, vidx, locs_arr
 
     def evaluation(self) -> dict:
@@ -204,7 +214,7 @@ class ARVRetrievalClip:
         if not expanded:
             return agg.result()
         with phase(self.timings, "gallery_to_device"):
-            scorer = GalleryScorer(gal_feats, device=self.device)
+            scorer = GalleryScorer(gal_feats, device=self.device, mesh=self.mesh)
             scorer.set_columns(gal_label_ids, gal_vid_codes)
             scorer.set_query_bank(q_feats_all.astype(np.float32, copy=False))
             if self.device.type == "cuda":

@@ -1,7 +1,8 @@
 """Feature extraction for the server and the evaluators.
 
 Counterpart of vqwild_tpu/retrieval/features.py. ``make_feat_fn`` (the
-JAX function's folded, unfolded and int8 single-device branches) is the
+JAX function's folded, unfolded and int8 branches, on one device or
+sharded over a mesh) is the
 eval forward → per-frame embeddings L2-normalized over the channel dim →
 numpy [B, C, T], the reference's feat_func contract (main.py:220-233);
 ``make_fake_feat_fn`` is the fake-feature backend (--memory_leak_debug,
@@ -80,8 +81,9 @@ def make_feat_fn(trunk: ResNet18F2F, *, wire: str = "rgb", dtype=torch.float32,
     embedded through the int8 graph. An existing ``calib_path`` is loaded
     instead of calibrating; otherwise the first batch's calibration is saved
     there for the next process. ``"int8_const"`` runs the same graph (eager
-    PyTorch has no jit constants to bake the parameters into). ``folded``
-    and ``dtype`` are not read then.
+    PyTorch has no jit constants to bake the parameters into) and, as in
+    the JAX package, only on one device. ``folded`` and ``dtype`` are not
+    read then.
 
     ``mesh`` (parallel/mesh.py) shards each batch's rows over the ranks, as
     the JAX function shards them over its mesh: the batch pads
@@ -89,16 +91,18 @@ def make_feat_fn(trunk: ResNet18F2F, *, wire: str = "rgb", dtype=torch.float32,
     block on the mesh's device (``device`` is not read), the rows are
     gathered in rank order and the padding cut: every rank returns the
     whole batch's features. Every rank must call it with the same batch.
-    The int8 trunk does not run under a mesh yet."""
+    The int8 trunk calibrates once from the whole padded first batch, as
+    JAX's does on its mesh: rank 0 runs the fp32 shadow and broadcasts the
+    maxima (models/quant.calibrate_trunk_on_mesh), writes ``calib_path``
+    alone, and every rank builds the int8 trunk from them; where
+    ``calib_path`` exists, every rank loads it."""
     if wire not in ("rgb", "yuv420"):
         raise ValueError(f"unknown wire format {wire!r}")
-    if mesh is not None and quant is not None:
-        raise ValueError(f"quant={quant!r} under a mesh is not ported yet (ROADMAP.md, "
-                         "Slice 6b)")
     dev = resolve_device(device) if mesh is None else mesh.device
+    calibrate = None
     if quant is not None:
-        fwd = _int8_fwd(trunk, wire=wire, quant=quant, calib_path=calib_path, bn_eps=bn_eps,
-                        device=dev)
+        calibrate, fwd = _int8_fwd(trunk, wire=wire, quant=quant, calib_path=calib_path,
+                                   bn_eps=bn_eps, device=dev, mesh=mesh)
     elif folded:
         fwd = make_embed_fn(trunk.state_dict(), dtype=dtype,
                             stem_mode="yuv_s2d" if wire == "yuv420" else "conv7",
@@ -121,6 +125,8 @@ def make_feat_fn(trunk: ResNet18F2F, *, wire: str = "rgb", dtype=torch.float32,
 
     def feat_fn(*arrays):
         tensors = [torch.as_tensor(np.asarray(a)).to(dev) for a in arrays]
+        if calibrate is not None:
+            calibrate(*tensors)
         with torch.inference_mode():
             return fwd(*tensors).cpu().numpy()
 
@@ -129,46 +135,62 @@ def make_feat_fn(trunk: ResNet18F2F, *, wire: str = "rgb", dtype=torch.float32,
 
     def feat_fn_sharded(*arrays):
         n = len(arrays[0])
-        block = shard_batch_arrays(mesh, *(pad_to_multiple(np.asarray(a), mesh.size)[0]
-                                           for a in arrays))
+        padded = [pad_to_multiple(np.asarray(a), mesh.size)[0] for a in arrays]
+        if calibrate is not None:
+            calibrate(*padded)
+        block = shard_batch_arrays(mesh, *padded)
         with torch.inference_mode():
             return mesh.gather(fwd(*block))[:n].cpu().numpy()
 
     return feat_fn_sharded
 
 
-def _int8_fwd(trunk, *, wire, quant, calib_path, bn_eps, device) -> Callable:
-    """f(y, uv) on ``device`` through the int8 trunk, calibrated from
-    ``calib_path`` now or from its first batch (once, under a lock: the
-    HTTP handler threads may make the first calls together)."""
+def _int8_fwd(trunk, *, wire, quant, calib_path, bn_eps, device, mesh=None):
+    """→ (calibrate, fwd) of the int8 trunk on ``device``: ``calibrate(y,
+    uv)`` calibrates from the first batch it sees (the whole padded global
+    batch under a ``mesh``) once, under a lock (the HTTP handler threads
+    may make the first calls together), unless ``calib_path`` was there to
+    load; ``fwd(y, uv)`` embeds the rows this process holds."""
     if quant not in ("int8", "int8_const"):
         raise ValueError(f"unknown quant mode {quant!r}")
     if wire != "yuv420":
         raise ValueError(f"quant={quant!r} requires wire='yuv420'")
+    if quant == "int8_const" and mesh is not None:
+        raise ValueError("quant='int8_const' is single-device only")
     from vqwild_tpu_torch.models import quant as quant_mod
 
     # the weights as they are now, as the JAX function captures its variables
     sd = {k: v.detach().to("cpu", copy=True) for k, v in trunk.state_dict().items()}
     cell: dict = {}
     cell_lock = threading.Lock()
+
+    def build(calib):
+        cell["fn"] = quant_mod.make_int8_embed_fn(sd, None, calib=calib, device=device,
+                                                  bn_eps=bn_eps,
+                                                  const_params=quant == "int8_const")
+
     if calib_path is not None and os.path.exists(calib_path):
-        cell["fn"] = quant_mod.make_int8_embed_fn(
-            sd, None, calib=quant_mod.load_calibration(calib_path), device=device,
-            bn_eps=bn_eps, const_params=quant == "int8_const")
+        build(quant_mod.load_calibration(calib_path))
+
+    def calibrate(y, uv):
+        if "fn" in cell:
+            return
+        with cell_lock:
+            if "fn" in cell:
+                return
+            if mesh is None:
+                calib = quant_mod.calibrate_trunk(sd, y, uv, bn_eps=bn_eps, device=device)
+                if calib_path is not None:
+                    quant_mod.save_calibration(calib_path, calib)
+            else:
+                calib = quant_mod.calibrate_trunk_on_mesh(sd, y, uv, mesh, bn_eps=bn_eps,
+                                                          calib_path=calib_path)
+            build(calib)
 
     def fwd(y, uv):
-        if "fn" not in cell:
-            with cell_lock:
-                if "fn" not in cell:
-                    calib = quant_mod.calibrate_trunk(sd, y, uv, bn_eps=bn_eps, device=device)
-                    if calib_path is not None:
-                        quant_mod.save_calibration(calib_path, calib)
-                    cell["fn"] = quant_mod.make_int8_embed_fn(
-                        sd, None, calib=calib, device=device, bn_eps=bn_eps,
-                        const_params=quant == "int8_const")
         return cell["fn"](y, uv)
 
-    return fwd
+    return calibrate, fwd
 
 
 def make_fake_feat_fn(feat_dim: int = 512, seed: Optional[int] = None) -> Callable:

@@ -16,9 +16,8 @@ Faithfully-preserved upstream quirks:
 * NMS runs before the ignore filter, so ignored moments can suppress valid
   ones (:1283-1314 vs :386-402).
 
-Counterpart of vqwild_tpu/retrieval/moment.py. Like the port's clip
-evaluator it takes ``device`` where the JAX class takes ``mesh``. The
-per-query postprocess runs on one of three engines:
+Counterpart of vqwild_tpu/retrieval/moment.py. The per-query postprocess
+runs on one of three engines:
 
 * **device** (``engine="auto"`` on ``cuda``): NMS + grouped-order metrics as
   torch ops on the device (retrieval/moment_device.py); each chunk is scored
@@ -33,6 +32,15 @@ per-query postprocess runs on one of three engines:
   engine that exposes the per-query kept stream for cm_dict).
 
 The engines are metric-equal, so the choice moves time, not results.
+
+Under a ``mesh`` (parallel/mesh.py) every rank runs the evaluation, as the
+port's clip evaluator does: each rank builds the whole gallery through the
+sharded extractor, the scorer holds its block of the gallery rows and
+gathers the score columns. The device engine then runs JAX's
+query-sharded mode chunk by chunk (never the super-chunked scan); the
+host engines run the postprocess on every rank over the whole chunk, so
+every rank returns the same metrics, one process's bit for bit. Rank 0
+alone writes the feature cache.
 """
 
 from __future__ import annotations
@@ -218,7 +226,10 @@ class ARVRetrievalMoment:
         score_readback_dtype: str = "float32",
         engine: str = "auto",
         scan_chunks: int = 16,
+        mesh=None,
     ):
+        """``device`` holds the gallery; under a ``mesh`` its device does
+        (``device`` is not read)."""
         self.extractor = extractor
         self.moment_clip_sec = moment_clip_sec
         self.max_clips = max_clips_per_moment
@@ -235,7 +246,8 @@ class ARVRetrievalMoment:
         # 0 means "no loader workers" at the CLI; postprocess still needs >=1
         self.workers = max(1, workers)
         self.collect_diagnostics = collect_diagnostics
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.device
         # "bfloat16" halves the [rank_chunk, ~10^6-moment] device→host score
         # transfer; metric impact is rounding-level rank flips between
         # near-tied moments
@@ -251,7 +263,8 @@ class ARVRetrievalMoment:
         # or a video overflows the engine's bucket cap
         self.engine = engine
         # device-engine super-chunking: ``scan_chunks`` query chunks are
-        # queued per readback (0 = dispatch and read back chunk by chunk)
+        # queued per readback (0 = dispatch and read back chunk by chunk;
+        # under a mesh every chunk is dispatched on its own)
         self.scan_chunks = int(scan_chunks)
         # resolved by evaluation(): "device" | "native" | "numpy"
         self.resolved_engine = ""
@@ -325,15 +338,16 @@ class ARVRetrievalMoment:
             total / max(len(self.gallery_videos), 1),
         )
         out = (feats, vidx, s_sec, e_sec, h_label.astype(str), h_iou)
-        self.extractor.save_cache(
-            "moment_gallery.npz",
-            feats=out[0],
-            video_idx=out[1],
-            start_sec=out[2],
-            end_sec=out[3],
-            hit_label=out[4],
-            hit_iou=out[5],
-        )
+        if self.mesh is None or self.mesh.rank == 0:
+            self.extractor.save_cache(
+                "moment_gallery.npz",
+                feats=out[0],
+                video_idx=out[1],
+                start_sec=out[2],
+                end_sec=out[3],
+                hit_label=out[4],
+                hit_iou=out[5],
+            )
         return out
 
     def _sync(self):
@@ -359,6 +373,7 @@ class ARVRetrievalMoment:
                 chunk=min(self.rank_chunk, 32),
                 max_ignore=max(8, 1 + self.multi_query_extra),
                 device=self.device,
+                mesh=self.mesh,
             )
         video_id_to_idx = {v.video_id: i for i, v in enumerate(self.gallery_videos)}
         expanded = generate_multi_query(
@@ -377,12 +392,12 @@ class ARVRetrievalMoment:
             [(queries[qs[0]].label, queries[qs[0]].retrieval_type) for qs in expanded]
         )
         with phase(self.timings, "gallery_to_device"):
-            scorer = GalleryScorer(feats, device=self.device)
+            scorer = GalleryScorer(feats, device=self.device, mesh=self.mesh)
             # queries gather from a device-resident bank: per chunk only the
             # [B, query_num] row indices cross to the device, not [B, D] features
             scorer.set_query_bank(q_feats_all.astype(np.float32, copy=False))
             self._sync()
-        if self.scan_chunks > 0 and expanded:
+        if self.mesh is None and self.scan_chunks > 0 and expanded:
             return self._device_scan_rank(
                 engine, scorer, queries, expanded, video_id_to_idx, agg
             )
@@ -568,7 +583,7 @@ class ARVRetrievalMoment:
         diag = DiagnosticsCollector(self.robust_map) if self.collect_diagnostics else None
 
         with phase(self.timings, "gallery_to_device"):
-            scorer = GalleryScorer(feats, device=self.device)
+            scorer = GalleryScorer(feats, device=self.device, mesh=self.mesh)
             self._sync()
         bf16 = self.score_readback_dtype == "bfloat16"
         rows = min(self.rank_chunk, max(len(expanded), 1))
@@ -593,7 +608,8 @@ class ARVRetrievalMoment:
                     )
                     self._sync()
                 with phase(self.timings, "score_readback"):
-                    readback[:b].copy_(dev_scores)
+                    # the gallery's columns: a mesh pads it to the world size
+                    readback[:b].copy_(dev_scores[:, : scorer.n])
                     if bf16:  # postprocess consumes fp32 (host widen is cheap)
                         wide[:b].copy_(readback[:b])
                     scores = wide[:b].numpy()

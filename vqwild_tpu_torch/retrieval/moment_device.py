@@ -38,9 +38,16 @@ cross-block suppression pass of the blocked NMS is tiled (``tile_elems``
 bounds each temporary), and a chunk's body has no host synchronisation:
 no boolean-mask indexing, ``.item()``, ``nonzero`` or branch on a device
 value; the only host wait is the readback in ``finalize``/``finalize_scan``.
-The JAX module's ``warm_scan`` has no counterpart (nothing to compile). Its
-query-sharded mesh mode is not ported yet (ROADMAP.md, Slice 6b): the
-engine runs on one device.
+The JAX module's ``warm_scan`` has no counterpart (nothing to compile).
+
+Under a ``mesh`` (parallel/mesh.py) the engine runs JAX's query-sharded
+mode: the bucket constants are on every rank's device, each chunk's
+gathered [B, n_padded] scores (every rank holds them: GalleryScorer
+gathers the columns) pad to the chunk, whose size is a multiple of the
+world size, and rank r runs the chunk body on its row block alone; the
+per-query rows are gathered in rank order before the one readback, so
+every rank returns the whole chunk. The super-chunked ``dispatch_scan``
+stays single-device, as JAX's does.
 """
 
 from __future__ import annotations
@@ -339,8 +346,10 @@ class DeviceMomentEngine:
     Parameters mirror the host postprocess inputs (retrieval/moment.py):
     window geometry/hit labels are the build_gallery outputs; ``tiou`` is
     applied HERE on the host in float64 (the device only ever sees the
-    boolean), so tp thresholds are bit-identical to the host path. Takes
-    ``device`` where the JAX class takes ``mesh``.
+    boolean), so tp thresholds are bit-identical to the host path. The
+    constants live on ``device``, or under a ``mesh`` on its device
+    (``device`` is not read), and the chunk then rounds down to a multiple
+    of the world size (at least the world size).
     """
 
     def __init__(
@@ -357,10 +366,14 @@ class DeviceMomentEngine:
         chunk: int = 32,
         max_ignore: int = 8,
         device: Union[str, torch.device] = "cuda",
+        mesh=None,
     ):
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.device
         self.n_moments = len(vidx)
         self.max_ignore = max_ignore
+        if mesh is not None:
+            chunk = max(mesh.size, (chunk // mesh.size) * mesh.size)
         self.chunk = chunk
         vidx = np.asarray(vidx, np.int64)
 
@@ -429,7 +442,9 @@ class DeviceMomentEngine:
         GalleryScorer output); q_labels [B] int ids; ignore_vids per-query
         gallery-video index lists. Returns an opaque handle for
         ``finalize``. Pads the chunk to the engine's fixed chunk size; the
-        [B]-sized outputs stay on the device until ``finalize``."""
+        [B]-sized outputs stay on the device until ``finalize``. Under a
+        mesh every rank passes the same chunk and computes its row block
+        of it."""
         b = scores.shape[0]
         assert b <= self.chunk, (b, self.chunk)
         ql = np.full(self.chunk, -1, np.int32)
@@ -441,6 +456,9 @@ class DeviceMomentEngine:
             ig[i, : len(vids)] = vids
         if b < self.chunk:
             scores = _pad_rows(scores, rows=self.chunk - b)
+        if self.mesh is not None:
+            rows = self.mesh.rows(self.chunk)
+            scores, ql, ig = scores[rows], ql[rows], ig[rows]
         out = _chunk_metrics_core(
             scores,
             self._ints(ql, np.int32),
@@ -452,13 +470,16 @@ class DeviceMomentEngine:
             r_at_n=tuple(r_at_n),
             robust=bool(robust),
         )
-        return _pack(*out), b
+        return _pack(*out), b, self.mesh
 
     @staticmethod
     def finalize(handle):
         """→ (ap [B] f64, recalls [B, len(r_at_n)] f64) for one dispatch:
-        one device-to-host copy of the three outputs."""
-        packed, b = handle
+        one device-to-host copy of the three outputs (under a mesh,
+        after the ranks' rows are gathered in rank order)."""
+        packed, b, mesh = handle
+        if mesh is not None:
+            packed = mesh.gather(packed)
         return _unpack(packed.cpu().numpy()[:b])
 
     def dispatch_scan(self, q_bank, gallery, q_rows, q_labels, ignore_vids,
@@ -468,7 +489,11 @@ class DeviceMomentEngine:
         the caller drops their outputs); q_labels [S, B]; ignore_vids
         [S, B, max_ignore] (-1 pads). Scores are computed from the
         device-resident bank (K1 on the card), so the upload is three small
-        integer arrays per S chunks."""
+        integer arrays per S chunks. Single-device only, as JAX's: under a
+        mesh each chunk goes through ``dispatch``."""
+        if self.mesh is not None:
+            raise ValueError("dispatch_scan is the single-device path; under a mesh, dispatch "
+                             "each chunk")
         s, b = np.shape(q_rows)[:2]
         assert b == self.chunk, (b, self.chunk)
         return _scan_metrics(

@@ -92,6 +92,13 @@ class GalleryScorer:
         self._col_vid_ids = None
         self._q_bank = None
 
+    def gallery(self) -> np.ndarray:
+        """The whole [n, D] gallery on the host (every rank holds it under
+        a mesh; ``g_dev`` is then the rank's block)."""
+        if self.mesh is not None:
+            return self._g_full[: self.n]
+        return self.g_dev[: self.n].cpu().numpy()
+
     def _ids(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(self.device)
 

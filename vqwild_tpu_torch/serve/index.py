@@ -4,6 +4,12 @@ Counterpart of vqwild_tpu/serve/index.py ``GalleryIndex`` and
 ``MomentIndex``. The on-disk formats are the same (``feats.npy`` +
 ``meta.json``; a moment index adds ``windows.npz`` + ``videos.json``), so
 either package serves an index the other built.
+
+Under a ``mesh`` (parallel/mesh.py) every rank holds its block of the
+gallery rows (retrieval/sharded.GalleryScorer) and answers the same top-k
+from the gathered score columns; the padded rows are masked out first.
+``save`` writes the whole gallery once, from rank 0, and every rank waits
+for it.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import torch
 from vqwild_tpu_torch.core.logging import get_logger
 from vqwild_tpu_torch.data.schema import VideoRecord
 from vqwild_tpu_torch.ops.nms import temporal_nms
+from vqwild_tpu_torch.parallel.distributed import barrier
 from vqwild_tpu_torch.retrieval.sharded import GalleryScorer
 
 log = get_logger("serve.index")
@@ -38,30 +45,33 @@ class GalleryIndex:
     """[N, C] fp32 clip embeddings + per-row metadata, scored on the device."""
 
     def __init__(self, feats: np.ndarray, meta: List[dict],
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", mesh=None):
         if feats.ndim != 2 or feats.shape[0] != len(meta):
             raise ValueError(f"feats {feats.shape} vs {len(meta)} metadata rows")
         self.meta = meta
         self.feat_dim = feats.shape[1]
-        self.scorer = GalleryScorer(feats, device=device)
+        self.scorer = GalleryScorer(feats, device=device, mesh=mesh)
         self.n = self.scorer.n
 
     # ---- construction ----
 
     @classmethod
     def build(cls, records: Sequence[VideoRecord], extractor,
-              device: Union[str, torch.device] = "cuda") -> "GalleryIndex":
+              device: Union[str, torch.device] = "cuda", mesh=None) -> "GalleryIndex":
         """Embed trimmed records through the extractor (already
         temporal-mean clip embeddings [N, C], features.py extract_trimmed)."""
         feats = extractor.extract_trimmed(list(records))
         meta = [
             {k: getattr(r, k) for k in _META_KEYS} for r in records[: feats.shape[0]]
         ]
-        return cls(np.asarray(feats, np.float32), meta, device=device)
+        return cls(np.asarray(feats, np.float32), meta, device=device, mesh=mesh)
 
     # ---- persistence ----
 
     def save(self, path: str) -> None:
+        _save_once(self.scorer, self._write, path)
+
+    def _write(self, path: str) -> None:
         # feats.npy is the load-detection marker — publish it LAST so an
         # interrupted save never leaves a directory that load() detects but
         # cannot read
@@ -72,18 +82,19 @@ class GalleryIndex:
             if os.path.exists(os.path.join(path, stale)):
                 os.remove(os.path.join(path, stale))
         _write_atomic(os.path.join(path, "meta.json"), lambda f: json.dump(self.meta, f))
-        feats = self.scorer.g_dev[: self.n].cpu().numpy()
+        feats = self.scorer.gallery()
         tmp = os.path.join(path, ".feats.tmp.npy")
         np.save(tmp, feats)
         os.replace(tmp, os.path.join(path, "feats.npy"))
         log.info("saved gallery index (%d rows) to %s", self.n, path)
 
     @classmethod
-    def load(cls, path: str, device: Union[str, torch.device] = "cuda") -> "GalleryIndex":
+    def load(cls, path: str, device: Union[str, torch.device] = "cuda",
+             mesh=None) -> "GalleryIndex":
         feats = np.load(os.path.join(path, "feats.npy"), mmap_mode="r")
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
-        return cls(np.asarray(feats), meta, device=device)
+        return cls(np.asarray(feats), meta, device=device, mesh=mesh)
 
     # ---- queries ----
 
@@ -92,7 +103,7 @@ class GalleryIndex:
 
         Scores are −‖q−g‖² (higher = closer), the reference's FAISS
         convention; on a tie the lower row comes first, as jax.lax.top_k
-        orders it."""
+        orders it. Padded gallery rows (a mesh's) never enter it."""
         return _masked_topk(self.scorer, self.n, qfeats, min(k, self.n))
 
     def row_meta(self, row: int) -> dict:
@@ -100,6 +111,15 @@ class GalleryIndex:
 
     def lookup(self, rows: Sequence[int]) -> List[dict]:
         return [self.meta[int(r)] for r in rows]
+
+
+def _save_once(scorer: GalleryScorer, write, path: str) -> None:
+    """``write(path)`` in the one process, or on rank 0 of a mesh while every
+    rank waits for it."""
+    if scorer.mesh is None or scorer.mesh.rank == 0:
+        write(path)
+    if scorer.mesh is not None:
+        barrier("index_save")
 
 
 def _pow2(x: int) -> int:
@@ -115,7 +135,9 @@ def _masked_topk(scorer: GalleryScorer, n: int, qfeats: np.ndarray, k: int):
     if bucket != b:
         q = np.concatenate([q, np.zeros((bucket - b,) + q.shape[1:], q.dtype)])
     kb = min(_pow2(k), n)
-    scores = scorer.scores(q)  # one device: n_padded == n, nothing to mask
+    scores = scorer.scores(q)
+    if scorer.n_padded > n:  # a mesh's padded rows (copies of the last) rank last
+        scores[:, n:] = -torch.inf
     # a stable descending sort keeps the lower row first on a tie; at a
     # moment index's 1.47M rows it beats torch.topk + a sort of the pool
     # on the card (chip_smoke.py, phase moment_serve)
@@ -138,7 +160,8 @@ class MomentIndex:
 
     def __init__(self, feats: np.ndarray, video_ids: List[str],
                  video_idx: np.ndarray, start_sec: np.ndarray,
-                 end_sec: np.ndarray, device: Union[str, torch.device] = "cuda"):
+                 end_sec: np.ndarray, device: Union[str, torch.device] = "cuda",
+                 mesh=None):
         g = feats.shape[0]
         if feats.ndim != 2 or not video_idx.shape == start_sec.shape == end_sec.shape == (g,):
             raise ValueError(f"feats {feats.shape} vs windows {video_idx.shape}, "
@@ -148,10 +171,13 @@ class MomentIndex:
         self.start_sec = np.asarray(start_sec, np.float64)
         self.end_sec = np.asarray(end_sec, np.float64)
         self.feat_dim = feats.shape[1]
-        self.scorer = GalleryScorer(feats, device=device)
+        self.scorer = GalleryScorer(feats, device=device, mesh=mesh)
         self.n = self.scorer.n
 
     def save(self, path: str) -> None:
+        _save_once(self.scorer, self._write, path)
+
+    def _write(self, path: str) -> None:
         # windows.npz (the moment-index marker) and metadata first; the
         # feats.npy load-detection marker is published LAST (see
         # GalleryIndex.save)
@@ -162,7 +188,7 @@ class MomentIndex:
         os.replace(wtmp, os.path.join(path, "windows.npz"))
         _write_atomic(os.path.join(path, "videos.json"),
                       lambda f: json.dump(self.video_ids, f))
-        feats = self.scorer.g_dev[: self.n].cpu().numpy()
+        feats = self.scorer.gallery()
         tmp = os.path.join(path, ".feats.tmp.npy")
         np.save(tmp, feats)
         os.replace(tmp, os.path.join(path, "feats.npy"))
@@ -170,13 +196,15 @@ class MomentIndex:
                  self.n, len(self.video_ids), path)
 
     @classmethod
-    def load(cls, path: str, device: Union[str, torch.device] = "cuda") -> "MomentIndex":
+    def load(cls, path: str, device: Union[str, torch.device] = "cuda",
+             mesh=None) -> "MomentIndex":
         feats = np.load(os.path.join(path, "feats.npy"), mmap_mode="r")
         with np.load(os.path.join(path, "windows.npz")) as z:
             video_idx, start_sec, end_sec = z["video_idx"], z["start_sec"], z["end_sec"]
         with open(os.path.join(path, "videos.json")) as f:
             video_ids = json.load(f)
-        return cls(np.asarray(feats), video_ids, video_idx, start_sec, end_sec, device=device)
+        return cls(np.asarray(feats), video_ids, video_idx, start_sec, end_sec, device=device,
+                   mesh=mesh)
 
     def topk(self, qfeats: np.ndarray, k: int = 30):
         """Raw window top-k (no NMS) — lets the micro-batched feature-query
