@@ -254,9 +254,39 @@ Phases, each printing one JSON line:
                 what its evaluator's queries ask for, and K1's shape in the
                 validation, trimmed, clip and moment evaluations, which
                 main() holds to the shapes phase k1 timed.
+  (n) offline — the offline tools (datagen, wordembed), host only, right
+                after k2: a seeded annotation dict of ActivityNet v1.3's
+                size (10,024 training, 4,926 validation and 5,044 testing
+                videos over the 200 labels of data/assets, 1-3 annotations
+                a video, 10-240 s) through ``python -m
+                vqwild_tpu_torch.datagen segments``, ``splitdb``,
+                ``momentdb`` and ``stats`` (100_20_80) as subprocesses,
+                then ``synthworld`` at its defaults; every DB loaded
+                through the port's runtime readers and checked; class
+                embeddings from a seeded d300 vector file (every token the
+                labels need plus 20,000 others) through
+                ``wordembed.build``, then ``wordembed.check``. Each step's
+                wall seconds. ``frames`` (no ffmpeg is promised on the
+                card's machine) and ``pack`` (the JPEG store decodes with
+                PIL, which that machine may lack) are covered by the CPU
+                tests only (tests/test_torch_datagen.py).
+  (o) remnants — the runtime remnants on the card, after offline, with
+                the launch counters zeroed just before and read just
+                after (phase_remnants): the five DML losses of
+                train/dml.loss_select on a [30, 512] batch over 200 classes
+                (forward and gradients against the CPU; fwd+bwd ms);
+                ops/preprocess.preprocess_clips on 30 clips of 32 x
+                128x171 → 112 (crops bit-equal to the host crop,
+                normalized within 1e-6 of the CPU's; ms beside the host
+                crop's); core/profiling.StepTimer + sync around 10 K1
+                calls at (256, 7,670, 512) (each step at least 0.9x its
+                call's CUDA-event time; "remnants" in the kernels line);
+                core/transfer.chunked_device_put of a [1,466,542, 512]
+                fp32 array (the moment gallery's shape, 3.0 GB) against
+                one .to(), in turns, bit-equal (seconds, peak memory).
   (m) kernels — one {"kernels": [...]} line; ``launches`` counts the serve,
-                eval, int8, clip, moment, train, loop, dist and cli phases
-                together.
+                eval, int8, clip, moment, train, loop, dist, cli and
+                remnants phases together.
 
 Then the card's name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -411,6 +441,17 @@ DIST_CHILD_TIMEOUT_S = 300
 # the sharded index: the eval phase's 7,670 rows, 16 queries, top 30
 DIST_MOMENT_QUERIES = 256
 DIST_INDEX_QUERIES, DIST_INDEX_K = 16, 30
+# the offline tools at ActivityNet v1.3's size: 10,024 training, 4,926
+# validation and 5,044 testing videos; a d300 vector file with every token
+# the 200 labels need plus 20,000 others (GloVe's 300-d files are the
+# reference's default); one subprocess step's time limit
+OFFLINE_VIDEOS = {"training": 10024, "validation": 4926, "testing": 5044}
+OFFLINE_FILLERS, OFFLINE_EMBED_DIM, OFFLINE_STEP_TIMEOUT_S = 20000, 300, 300
+# the remnants on the card: the training path's batch (10 triplets of
+# 512-d embeddings, 200 classes; 30 clips of 32 of the store's 171x128
+# frames cropped to 112), 10 K1 calls at a trimmed-evaluator chunk under
+# StepTimer, and the moment phase's gallery shape for the uploads
+REMNANTS_K1_CALLS = 10
 
 
 def emit(obj) -> None:
@@ -3874,6 +3915,373 @@ def phase_dist(dev, workdir, *, nclass, triplets, frames, crop, clips, steps, wo
     return out
 
 
+def write_activitynet(path, *, videos, labels, seed):
+    """A seeded annotation dict in ActivityNet v1.3's format: ``videos``
+    {subset: count}, 1-3 annotations a video over ``labels``, durations of
+    10-240 s, annotations inside the video and apart from one another."""
+    rng = np.random.default_rng(seed)
+    db = {}
+    for subset, n in videos.items():
+        for i in range(n):
+            duration = round(float(rng.uniform(10, 240)), 2)
+            anns, t = [], float(rng.uniform(0, 10))
+            for _ in range(int(rng.integers(1, 4))):
+                length = float(rng.uniform(2, 90))
+                if t + length > duration:
+                    break
+                anns.append({"segment": [round(t, 2), round(t + length, 2)],
+                             "label": labels[int(rng.integers(len(labels)))]})
+                t += length + float(rng.uniform(0, 40))
+            if subset == "testing":
+                anns = []  # ActivityNet publishes no testing annotations
+            db[f"{subset[:2]}{i:06d}"] = {"duration": duration, "subset": subset,
+                                          "annotations": anns}
+    with open(path, "w") as f:
+        json.dump({"version": "VERSION 1.3", "database": db}, f)
+    return db
+
+
+def write_vector_file(path, tokens, *, dim, fillers, seed):
+    """A GloVe-style text file: ``tokens`` then ``fillers`` made-up tokens,
+    each with ``dim`` seeded values."""
+    rng = np.random.default_rng(seed)
+    words = list(tokens) + [f"filler{i:05d}" for i in range(fillers)]
+    vals = rng.standard_normal((len(words), dim)).astype(np.float32)
+    with open(path, "w", encoding="utf-8") as f:
+        for w, row in zip(words, vals):
+            f.write(w + " " + " ".join(f"{v:.5f}" for v in row) + "\n")
+    return len(words)
+
+
+def run_module(module, *args, cwd):
+    """``python -m module args`` in a subprocess; (wall seconds, stdout)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", module, *args], cwd=cwd, capture_output=True,
+                       text=True, timeout=OFFLINE_STEP_TIMEOUT_S)
+    if r.returncode != 0:
+        raise AssertionError(f"python -m {module} {' '.join(args)} exited {r.returncode}:\n"
+                             f"{r.stderr[-4000:]}")
+    return time.perf_counter() - t0, r.stdout
+
+
+def phase_offline(workdir, *, videos, fillers, embed_dim, seed=0):
+    """The offline tools as a user runs them, in subprocesses from the
+    checkout, host only: an annotation dict of ActivityNet v1.3's size
+    (``videos`` by subset) over the 200 labels of data/assets through
+    ``python -m vqwild_tpu_torch.datagen segments → splitdb → momentdb →
+    stats``, then ``synthworld`` at its defaults; each DB loaded through
+    the port's runtime readers; class embeddings from a ``embed_dim``-d
+    vector file (every token the labels need plus ``fillers`` others)
+    through ``wordembed.build``, then ``wordembed.check``. ``frames`` (no
+    ffmpeg is promised here) and ``pack`` (its JPEG store decodes with PIL)
+    are covered by tests/test_torch_datagen.py only."""
+    from vqwild_tpu_torch.data.labels import (NOISE_LABEL, activitynet_labels, get_split,
+                                              load_split_file)
+    from vqwild_tpu_torch.data.schema import (load_moment_db, load_trimmed_db,
+                                              load_word_embeddings)
+    from vqwild_tpu_torch.wordembed.build import tokenize_label
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(workdir, exist_ok=True)
+    p = {k: os.path.join(workdir, v) for k, v in (
+        ("anet", "activity_net.v1-3.min.json"), ("seg", "video_segment.json"),
+        ("db", "arv_db_100_20_80.json"), ("mdb", "arv_db_100_20_80_untrimmed_v2.json"),
+        ("stats", "stats.json"), ("world", "synthworld"), ("vec", "vectors.txt"),
+        ("embed", f"wordembed_glove_d{embed_dim}.json"))}
+    labels = activitynet_labels()
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    anet = write_activitynet(p["anet"], videos=videos, labels=labels, seed=seed)
+    secs = {"write_annotations": time.perf_counter() - t0}
+    secs["segments"], out = run_module("vqwild_tpu_torch.datagen", "segments", "--activitynet",
+                                       p["anet"], "--out", p["seg"], cwd=root)
+    seg_line = out.strip().splitlines()[-1]
+    secs["splitdb"], _ = run_module("vqwild_tpu_torch.datagen", "splitdb", "--segments",
+                                    p["seg"], "--meta_split", "100_20_80", "--out", p["db"],
+                                    cwd=root)
+    secs["momentdb"], _ = run_module("vqwild_tpu_torch.datagen", "momentdb", "--activitynet",
+                                     p["anet"], "--meta_split", "100_20_80", "--out", p["mdb"],
+                                     cwd=root)
+    secs["stats"], stats_out = run_module("vqwild_tpu_torch.datagen", "stats", "--db", p["db"],
+                                          "--untrimmed", p["mdb"], "--meta_split", "100_20_80",
+                                          "--json_out", p["stats"], cwd=root)
+    secs["synthworld"], world_out = run_module("vqwild_tpu_torch.datagen", "synthworld",
+                                               "--out_dir", p["world"], cwd=root)
+
+    spec = get_split("100_20_80")
+    db = load_trimmed_db(p["db"])
+    mdb = load_moment_db(p["mdb"])
+    n_val = sum(1 for v in anet.values() if v["subset"] == "validation")
+    if len(mdb.gallery) != n_val or not mdb.query:
+        raise AssertionError(f"momentdb: {len(mdb.gallery)} gallery videos of {n_val}, "
+                             f"{len(mdb.query)} queries")
+    split_sizes = {s: len(db.flat(s)) for s in ("training", "validation", "testing")}
+    if min(split_sizes.values()) == 0 or NOISE_LABEL not in db.splits["training"]:
+        raise AssertionError(f"splitdb: {split_sizes}")
+    if len(db.cls2int(spec, novel_num=5)) != 200:
+        raise AssertionError("splitdb: the 200 labels are not all in the training split")
+    with open(p["stats"]) as f:
+        report = json.load(f)
+    grid = report["moment"]["coverage_grid"]
+    if len(grid) != 9 or not all(0.0 <= g["iou05"] <= 1.0 for g in grid):
+        raise AssertionError(f"stats: {grid}")
+    wspec = load_split_file(os.path.join(p["world"], "synth_split.json"))
+    wdb, wmdb = load_trimmed_db(wspec.db_json), load_moment_db(wspec.moment_db_json)
+    wnclass = len(wspec.all_labels)
+    wc2i = wdb.cls2int(wspec, novel_num=5)
+    wemb = load_word_embeddings(os.path.join(p["world"], "wordembed_synth_d64.json"), wc2i,
+                                wnclass)
+    if wnclass != 24 or wemb.shape != (24, 64) or not wmdb.gallery:
+        raise AssertionError(f"synthworld: {wnclass} classes, embeddings {wemb.shape}")
+    if "train: python -m vqwild_tpu_torch --meta_split" not in world_out:
+        raise AssertionError(f"synthworld printed {world_out!r}")
+
+    tokens = sorted({t for label in labels for t in tokenize_label(label)})
+    t0 = time.perf_counter()
+    n_words = write_vector_file(p["vec"], tokens, dim=embed_dim, fillers=fillers, seed=seed + 1)
+    secs["write_vectors"] = time.perf_counter() - t0
+    secs["wordembed_build"], build_out = run_module(
+        "vqwild_tpu_torch.wordembed.build", "--vectors", p["vec"], "--out", p["embed"],
+        "--dim", str(embed_dim), cwd=root)
+    secs["wordembed_check"], check_out = run_module(
+        "vqwild_tpu_torch.wordembed.check", p["embed"], "--topk", "3", cwd=root)
+    emb = load_word_embeddings(p["embed"], {label: i for i, label in enumerate(labels)}, 200)
+    if emb.shape != (200, embed_dim) or not np.isfinite(emb).all() or (emb == 0).all(1).any():
+        raise AssertionError(f"wordembed: {emb.shape}, a zero row: {(emb == 0).all(1).any()}")
+    first = check_out.splitlines()[0]
+    if len(check_out.splitlines()) != 200 or not first.startswith(labels[0] + " -> "
+                                                                    + labels[0] + "("):
+        raise AssertionError(f"wordembed.check printed {first!r}")
+
+    row = {"phase": "offline", "seconds": secs, "phase_s": time.perf_counter() - t_phase,
+           "videos": videos, "segments": seg_line, "split_records": split_sizes,
+           "moment": {"queries": len(mdb.query), "gallery": len(mdb.gallery)},
+           "coverage_clip5_max26": next(g for g in grid if g["clip_sec"] == 5
+                                        and g["max_clips_per_moment"] == 26),
+           "synthworld": {"classes": wnclass, "gallery": len(wmdb.gallery),
+                          "records": sum(len(wdb.flat(s)) for s in wdb.splits)},
+           "vectors": {"tokens": n_words, "dim": embed_dim,
+                       "bytes": os.path.getsize(p["vec"])},
+           "wordembed_build": build_out.strip(), "stats_lines": len(stats_out.splitlines())}
+    emit(row)
+    return row
+
+
+def sync_device(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def events_ms(fn, iters: int, warmup: int) -> float:
+    """Mean ms of one call by CUDA events around ``iters`` calls after
+    ``warmup``, host work included (``time_ms`` hides it behind a spin,
+    which a call that copies from pageable memory cannot use)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    for _ in range(iters):
+        fn()
+    ev1.record()
+    ev1.synchronize()
+    return ev0.elapsed_time(ev1) / iters
+
+
+def grads_close(got, want, what):
+    """rtol 1e-5 and atol 1e-6 times the larger of 1 and the reference's
+    largest entry (tests/test_torch_dml.py)."""
+    import torch
+
+    want = want.detach().cpu()
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got.detach().cpu(), want, rtol=1e-5, atol=1e-6 * scale,
+                               msg=lambda m: f"{what}: {m}")
+    return float((got.detach().cpu() - want).abs().max())
+
+
+def phase_remnants(dev, *, triplets, nclass, embed_dim, clips, frames, crop, gallery_rows,
+                   k1_chunk, k1_calls, seed=0):
+    """The runtime remnants on the card, at the training path's width, with
+    the launch counters zeroed just before and read just after.
+
+    DML: a seeded [3·triplets, embed_dim] L2-normalized batch over
+    ``nclass`` classes; for each of loss_select's five names the forward
+    and the gradients (w.r.t. the batch and every extra parameter) on the
+    card and on the CPU from the same sampler output and parameters
+    (grads_close), and the forward+backward ms (CUDA events around 20 calls
+    after 3). preprocess_clips: ``clips`` seeded clips of ``frames`` x
+    128x171 uint8 (the store's frames) → ``crop``; the crops on the card
+    equal the host crop bit for bit, the normalized clips within 1e-6 of
+    the host crop + normalize_clips on the CPU; its ms beside the host
+    crop's. StepTimer + sync: ``k1_calls`` K1 calls at ``k1_chunk``, each
+    step's total at least 0.9x the CUDA-event time of its call and the
+    call's end event complete when step returns. chunked_device_put: a
+    seeded [gallery_rows, 512] fp32 array (the moment gallery's shape)
+    uploaded by one .to() and chunked, in turns (one, chunked, chunked,
+    one), bit-equal; seconds and peak device memory of each."""
+    import torch
+
+    from vqwild_tpu_torch.core.profiling import StepTimer
+    from vqwild_tpu_torch.core.transfer import chunked_device_put
+    from vqwild_tpu_torch.ops import distance, stem_pool
+    from vqwild_tpu_torch.ops.preprocess import (crop_clips_device, crop_clips_host,
+                                                 normalize_clips, preprocess_clips,
+                                                 preprocess_host)
+    from vqwild_tpu_torch.train import dml
+
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    distance.launches.reset()
+    stem_pool.launches.reset()
+
+    # --- DML losses
+    n = 3 * triplets
+    anchor_cls = rng.choice(nclass, size=triplets, replace=False)
+    neg_cls = np.array([rng.choice(np.setdiff1d(np.arange(nclass), [c])) for c in anchor_cls])
+    labels = np.stack([anchor_cls, anchor_cls, neg_cls], 1).reshape(-1).astype(np.int32)
+    batch_np = rng.standard_normal((n, embed_dim)).astype(np.float32)
+    batch_np /= np.linalg.norm(batch_np, axis=1, keepdims=True)
+    dml_rows = {}
+    for name in ("triplet", "npair", "marginloss", "proxynca", "crossentropy"):
+        sample, loss_fn, params = dml.loss_select(name, nclass, embed_dim,
+                                                  torch.Generator().manual_seed(seed), device=dev)
+        _, _, cpu_params = dml.loss_select(name, nclass, embed_dim,
+                                           torch.Generator().manual_seed(seed), device="cpu")
+        aux = sample(batch_np, labels, np.random.default_rng(seed))
+        keys = sorted(params)
+
+        def fwd_bwd(device, ps):
+            b = torch.from_numpy(batch_np).to(device).requires_grad_()
+            loss = loss_fn(b, labels, aux, ps)
+            return loss, torch.autograd.grad(loss, [b] + [ps[k] for k in keys])
+
+        loss, grads = fwd_bwd(dev, params)
+        cpu_loss, cpu_grads = fwd_bwd("cpu", cpu_params)
+        err = max([grads_close(loss, cpu_loss, f"{name} loss")]
+                  + [grads_close(g, w, f"{name} grad {i}")
+                     for i, (g, w) in enumerate(zip(grads, cpu_grads))])
+        if not torch.isfinite(loss):
+            raise AssertionError(f"{name}: loss {loss}")
+        b = torch.from_numpy(batch_np).to(dev).requires_grad_()
+        leaves = [b] + [params[k] for k in keys]
+
+        def step():
+            torch.autograd.grad(loss_fn(b, labels, aux, params), leaves)
+
+        dml_rows[name] = {"loss": loss.item(), "max_abs_err_vs_cpu": err,
+                          "fwd_bwd_ms": events_ms(step, 20, 3) if on_card else None,
+                          "aux": {k: list(np.shape(v)) for k, v in aux.items()},
+                          "params": {k: list(v.shape) for k, v in params.items()}}
+
+    # --- preprocess_clips
+    h, w = 128, 171
+    frames_np = rng.integers(0, 256, (clips, frames, h, w, 3), dtype=np.uint8)
+    offsets = np.stack([rng.integers(0, h - crop + 1, clips),
+                        rng.integers(0, w - crop + 1, clips)], 1).astype(np.int32)
+    flips = rng.random(clips) < 0.5
+    frames_dev = torch.from_numpy(frames_np).to(dev)
+    t0 = time.perf_counter()
+    host_crop = crop_clips_host(frames_np, offsets, flips, crop)
+    host_crop_ms = (time.perf_counter() - t0) * 1e3
+    dev_crop = crop_clips_device(frames_dev, offsets, flips, crop)
+    if not torch.equal(dev_crop.cpu(), torch.from_numpy(host_crop)):
+        raise AssertionError("preprocess_clips: the card's crops differ from the host crop")
+    got = preprocess_clips(frames_dev, offsets, flips, crop)
+    want = normalize_clips(torch.from_numpy(host_crop))
+    pre_err = float((got.cpu() - want).abs().max())
+    host_err = float(np.abs(got.cpu().numpy()
+                            - preprocess_host(frames_np, offsets, flips, crop)).max())
+    if got.shape != (clips, frames, crop, crop, 3) or pre_err > 1e-6 or host_err > 1e-6:
+        raise AssertionError(f"preprocess_clips: {tuple(got.shape)}, {pre_err} against "
+                             f"normalize_clips, {host_err} against preprocess_host")
+    offsets_dev = torch.from_numpy(offsets).to(dev)
+    flips_dev = torch.from_numpy(flips).to(dev)
+    pre_ms = norm_ms = None
+    if on_card:
+        pre_ms = time_ms(lambda: preprocess_clips(frames_dev, offsets_dev, flips_dev, crop))
+        norm_ms = time_ms(lambda: normalize_clips(dev_crop))
+    del frames_dev, dev_crop, got
+
+    # --- StepTimer + sync around K1
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    nq, ng, d = k1_chunk
+    q = torch.randn(nq, d, generator=gen, device=dev)
+    g = torch.randn(ng, d, generator=gen, device=dev)
+    torch.testing.assert_close(distance.sq_l2(q, g), distance.pairwise_sq_l2(q, g), rtol=1e-5,
+                               atol=1e-3)
+    distance.launches.reset()  # the check above is not the path
+    timer = StepTimer(window=k1_calls)
+    steps = []
+    for _ in range(k1_calls):
+        if not on_card:
+            timer.step(0.0, {"scores": [distance.sq_l2(q, g)]})
+            continue
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        out = distance.sq_l2(q, g)
+        ev1.record()
+        total = timer.step(0.0, {"scores": [out]})
+        done = ev1.query()
+        steps.append({"step_ms": total * 1e3, "event_ms": ev0.elapsed_time(ev1), "done": done})
+    bad = [s for s in steps if not s["done"] or s["step_ms"] < 0.9 * s["event_ms"]]
+    if bad:
+        raise AssertionError(f"StepTimer did not wait for the card: {bad}")
+
+    # --- chunked_device_put
+    t0 = time.perf_counter()
+    gallery = rng.random((gallery_rows, 512), dtype=np.float32)
+    make_s = time.perf_counter() - t0
+    uploads = []
+    kept = {}
+    for how in ("one_copy", "chunked", "chunked", "one_copy"):
+        sync_device(dev)
+        base = torch.cuda.memory_allocated() if on_card else 0
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if how == "one_copy":
+            up = torch.from_numpy(gallery).to(dev)
+            sync_device(dev)
+        else:
+            up = chunked_device_put(gallery, dev)
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base if on_card else None
+        uploads.append({"how": how, "s": secs, "peak_extra_bytes": peak})
+        kept.setdefault(how, up)
+        del up
+    if not torch.equal(kept["one_copy"].view(torch.int32), kept["chunked"].view(torch.int32)):
+        raise AssertionError("chunked_device_put differs from the one-copy upload")
+    del kept
+    if on_card:
+        torch.cuda.empty_cache()
+
+    launches = {"sq_l2": distance.launches.n, "stem_s2d_pool": stem_pool.launches.n}
+    want_k1 = k1_calls if on_card else 0  # a CPU tensor runs K1's plain version
+    if launches["sq_l2"] != want_k1 or launches["stem_s2d_pool"] != 0:
+        raise AssertionError(f"the remnants path launched {launches}; want K1 {want_k1}, K2 0")
+    by = {h: [u["s"] for u in uploads if u["how"] == h] for h in ("one_copy", "chunked")}
+    row = {"phase": "remnants", "dml": dml_rows,
+           "preprocess_clips": {"shape": [clips, frames, h, w, 3], "crop": crop,
+                                "max_abs_err_vs_cpu": pre_err,
+                                "max_abs_err_vs_preprocess_host": host_err,
+                                "card_ms": pre_ms, "card_normalize_only_ms": norm_ms,
+                                "host_crop_ms": host_crop_ms},
+           "step_timer": {"chunk": list(k1_chunk), "steps": steps},
+           "chunked_device_put": {"shape": [gallery_rows, 512], "bytes": gallery.nbytes,
+                                  "make_s": make_s, "runs": uploads,
+                                  "one_copy_s": by["one_copy"], "chunked_s": by["chunked"]},
+           "launches": launches, "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -3899,6 +4307,13 @@ def main() -> int:
 
     k1 = phase_k1(dev, K1_SHAPES)
     k2 = phase_k2(dev, K2_CASES)
+    with tempfile.TemporaryDirectory() as workdir:
+        phase_offline(workdir, videos=OFFLINE_VIDEOS, fillers=OFFLINE_FILLERS,
+                      embed_dim=OFFLINE_EMBED_DIM)
+    remnants = phase_remnants(dev, triplets=TRAIN_TRIPLETS, nclass=TRAIN_NCLASS, embed_dim=512,
+                              clips=CLIPS, frames=FRAMES, crop=CROP,
+                              gallery_rows=K1_MOMENT_CHUNK[1], k1_chunk=K1_EVAL_CHUNK,
+                              k1_calls=REMNANTS_K1_CALLS)
     train = phase_train(dev, triplets=TRAIN_TRIPLETS, frames=FRAMES, crop=CROP,
                         warmup=TRAIN_WARMUP, timed=TRAIN_TIMED)
     train_choices(dev, frames=TRAIN_TRIPLETS * 3 * FRAMES, crop=CROP)
@@ -3993,7 +4408,7 @@ def main() -> int:
     paths = {"serve": serve["launches"], "eval": evald["launches"], "int8": int8["launches"],
              "clip": clip["launches"], "moment": moment["launches"],
              "train": train["launches"], "loop": loop["launches"], "cli": cli["launches"],
-             "dist": dist["launches"]}
+             "dist": dist["launches"], "remnants": remnants["launches"]}
     launches = {k: sum(p[k] for p in paths.values()) for k in serve["launches"]}
     chunk_keys = ("shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [

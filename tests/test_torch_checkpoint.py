@@ -35,6 +35,17 @@ from vqwild_tpu_torch.train.loop import TrainLoop
 from vqwild_tpu_torch.train.step import make_train_step
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the port here: the suite's parallel workers
+    share the CPU, and torch's default of a thread per core oversubscribes
+    it (as in tests/test_torch_lifecycle.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def stepped_state(tiny_arv, steps=3, accum_grad=2):
     """A state after ``steps`` va steps; with accum_grad 2 and an odd count
     a gradient mean is pending."""

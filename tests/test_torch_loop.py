@@ -50,6 +50,17 @@ FRAMES, CROP, H, W = 2, 32, 40, 48
 LOSS_TOL, TOTAL_LOSS_TOL = 2e-4, 5e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the port here: the suite's parallel workers
+    share the CPU, and torch's default of a thread per core oversubscribes
+    it (as in tests/test_torch_lifecycle.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jx():
     """The JAX package's loop, step, loader and seeded-variable helpers."""

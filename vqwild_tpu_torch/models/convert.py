@@ -13,7 +13,9 @@ key names and weight shapes, so both paths end in one ``state_dict`` layout:
 ``save_reference_checkpoint`` writes a model back out as a reference
 ``best.pth.tar`` (vqwild_tpu/models/torch_export.py:72-132).
 ``int8_params_from_jax`` carries the JAX package's int8 trunk parameters
-(its ``quantize_trunk`` tree) over to the port's int8 graph.
+(its ``quantize_trunk`` tree) over to the port's int8 graph, and
+``dml_params_from_jax`` the extra parameters of its DML losses
+(train/dml.py).
 """
 
 from __future__ import annotations
@@ -163,6 +165,18 @@ def int8_params_from_jax(qp: Mapping[str, Any],
         return np.asarray(node)
 
     return int8_params(host(qp), device)
+
+
+def dml_params_from_jax(params: Mapping[str, Any],
+                        device: Union[str, torch.device] = "cuda") -> Dict[str, torch.Tensor]:
+    """The JAX ``train.dml.loss_select`` extra parameters (``beta``,
+    ``proxies``, ``w``, ``b``; numpy or JAX arrays) → the port's leaf
+    tensors on ``device`` with ``requires_grad``, so that both packages
+    compute a loss from the same draw (``jax.random`` and
+    ``torch.Generator`` draw differently)."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.array(v)).to(dev).requires_grad_()
+            for k, v in params.items()}
 
 
 def trunk_from_state_dict(sd: Mapping[str, torch.Tensor]) -> ResNet18F2F:

@@ -5,14 +5,19 @@ slicing on the host (``crop_clips_host``, ``crop_yuv420_host``), so the
 cropped uint8 clip is what crosses to the device; ``normalize_clips`` and
 ``normalize_clips_yuv420`` are the device halves of the two wire formats.
 The host functions are copies of the JAX package's, byte for byte in what
-they return.
+they return. ``preprocess_clips`` crops, flips and normalizes on the
+device; as in the JAX package it is the reference entry point, not the
+loader's path.
 """
 
 from __future__ import annotations
 
+from typing import Union
+
 import numpy as np
 import torch
 
+from vqwild_tpu_torch.core.device import resolve_device
 from vqwild_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 
 
@@ -33,6 +38,42 @@ def _normalize01(x: torch.Tensor, out_dtype) -> torch.Tensor:
 def normalize_clips(clips_u8: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
     """uint8 [..., C] (already cropped/flipped) → ImageNet-normalized."""
     return _normalize01(clips_u8.float() * (1.0 / 255.0), out_dtype)
+
+
+def crop_clips_device(frames: torch.Tensor, offsets, flips, size: int) -> torch.Tensor:
+    """frames [B,T,H,W,C] → [B,T,size,size,C] (same dtype) on their device:
+    clip b cropped at ``offsets[b]`` = (top, left) and, where ``flips[b]``,
+    flipped along W; one crop and flip for all T frames of a clip. An offset
+    is read as ``jax.lax.dynamic_slice`` reads a start index: a negative one
+    counts from the end, then it is clamped so that the crop fits. One
+    gather, no host synchronisation."""
+    b, t, h, w, _ = frames.shape
+    dev = frames.device
+    off = torch.as_tensor(offsets, device=dev).long().reshape(b, 2)
+    flip = torch.as_tensor(flips, device=dev).bool().reshape(b)
+    top, left = off[:, 0], off[:, 1]
+    top = torch.where(top < 0, top + h, top).clamp(0, h - size)
+    left = torch.where(left < 0, left + w, left).clamp(0, w - size)
+    ar = torch.arange(size, device=dev)
+    rows = top[:, None] + ar  # [B, size]
+    cols = left[:, None] + torch.where(flip[:, None], size - 1 - ar, ar)
+    bi = torch.arange(b, device=dev)[:, None, None, None]
+    ti = torch.arange(t, device=dev)[None, :, None, None]
+    return frames[bi, ti, rows[:, None, :, None], cols[:, None, None, :]]
+
+
+def preprocess_clips(frames, offsets, flips, size: int, out_dtype=torch.float32,
+                     device: Union[str, torch.device] = "cuda") -> torch.Tensor:
+    """frames [B,T,H,W,C] uint8, offsets [B,2] (top,left), flips [B] bool
+    → [B,T,size,size,C] normalized, on the device of ``frames`` (a numpy
+    ``frames`` goes to ``device`` first).
+
+    The whole-clip crop/flip semantics match video_transforms.py: one
+    parameterization applied to all T frames of a clip.
+    """
+    if not isinstance(frames, torch.Tensor):
+        frames = torch.from_numpy(np.ascontiguousarray(frames)).to(resolve_device(device))
+    return normalize_clips(crop_clips_device(frames, offsets, flips, size), out_dtype)
 
 
 def normalize_clips_yuv420(y_u8: torch.Tensor, uv_u8: torch.Tensor,
