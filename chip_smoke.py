@@ -135,9 +135,9 @@ Phases, each printing one JSON line:
                 memory, the bucket plan; at the tenth of the videos within
                 1e-3 of the CPU host engine's metrics; then one chunk under
                 torch.profiler (line "profile_moment_device": device ms by
-                kernel, K1's, the spans of the scoring, bucket-sort, NMS
-                and AP-sort ranges, launches, synchronising calls, busy
-                share).
+                kernel, K1's, the host ms of the scoring, bucket-sort, NMS
+                and AP-sort spans (core/profiling.py), launches,
+                synchronising calls, busy share).
                 "moment_serve": a MomentIndex of those 1.47M windows behind
                 the port's HTTP server; /query/moments (k = 10) for 32
                 short windows' own features, sequential and 8-way
@@ -278,9 +278,10 @@ Phases, each printing one JSON line:
                 ops/preprocess.preprocess_clips on 30 clips of 32 x
                 128x171 → 112 (crops bit-equal to the host crop,
                 normalized within 1e-6 of the CPU's; ms beside the host
-                crop's); core/profiling.StepTimer + sync around 10 K1
-                calls at (256, 7,670, 512) (each step at least 0.9x its
-                call's CUDA-event time; "remnants" in the kernels line);
+                crop's); core/profiling.sync after each of 10 K1
+                calls at (256, 7,670, 512) (each call's host time with the
+                wait at least 0.9x its CUDA-event time; "remnants" in the
+                kernels line);
                 core/transfer.chunked_device_put of a [1,466,542, 512]
                 fp32 array (the moment gallery's shape, 3.0 GB) against
                 one .to(), in turns, bit-equal (seconds, peak memory).
@@ -449,8 +450,9 @@ OFFLINE_VIDEOS = {"training": 10024, "validation": 4926, "testing": 5044}
 OFFLINE_FILLERS, OFFLINE_EMBED_DIM, OFFLINE_STEP_TIMEOUT_S = 20000, 300, 300
 # the remnants on the card: the training path's batch (10 triplets of
 # 512-d embeddings, 200 classes; 30 clips of 32 of the store's 171x128
-# frames cropped to 112), 10 K1 calls at a trimmed-evaluator chunk under
-# StepTimer, and the moment phase's gallery shape for the uploads
+# frames cropped to 112), 10 K1 calls at a trimmed-evaluator chunk, each
+# waited for by profiling.sync, and the moment phase's gallery shape for
+# the uploads
 REMNANTS_K1_CALLS = 10
 
 
@@ -680,7 +682,7 @@ def concurrently(fns):
     return out
 
 
-ANNOTATION = "moment_device."  # the device engine's record_function ranges
+SPAN_PREFIX = "moment_device."  # the device engine's spans in the recorder
 
 
 def device_ms_by_kernel(prof) -> dict:
@@ -688,20 +690,23 @@ def device_ms_by_kernel(prof) -> dict:
     the profiler traced no device activity."""
     kernels = {}
     for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA") and not e.key.startswith(ANNOTATION):
+        if str(e.device_type).endswith("CUDA"):
             kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total / 1e3
     return kernels
 
 
-def annotation_ms(prof) -> dict:
-    """The device engine's ranges from a torch.profiler run: for each, its
-    span on the device's timeline in ms (the GPU annotation: from its first
-    kernel's start to its last kernel's end, idle gaps included, summed over
-    its calls) and its calls."""
+def span_ms() -> dict:
+    """The device engine's spans in the recorder's last session
+    (core/profiling.py): for each, its host ms summed over its calls, and
+    its calls."""
+    from vqwild_tpu_torch.core import profiling
+
     out = {}
-    for e in prof.key_averages():
-        if e.key.startswith(ANNOTATION) and str(e.device_type).endswith("CUDA"):
-            out[e.key[len(ANNOTATION):]] = {"span": e.device_time_total / 1e3, "calls": e.count}
+    for sp in profiling.spans():
+        if sp.name.startswith(SPAN_PREFIX):
+            r = out.setdefault(sp.name[len(SPAN_PREFIX):], {"host": 0.0, "calls": 0})
+            r["host"] += (sp.end - sp.start) * 1e3
+            r["calls"] += 1
     return out
 
 
@@ -1831,9 +1836,9 @@ def short_windows(vidx, s_sec, e_sec, n, longest=10.0):
 
 def profile_moment_device(run, n_queries):
     """The device engine's rank loop over ``n_queries`` queries (one chunk)
-    under torch.profiler: device ms by kernel, K1's, the spans of the
-    engine's ranges (scoring, bucket sort, NMS with its pair matrices,
-    within-block loop and cross-block pass, AP sort), kernel launches and
+    under torch.profiler: device ms by kernel, K1's, the host ms of the
+    engine's spans in the recorder (scoring, bucket sort, NMS with its pair
+    matrices, within-block loop and cross-block pass, AP sort), kernel launches and
     runtime calls that synchronise, and the device's busy share of the
     loop's host time. ``run(profiled)`` returns
     the evaluator's timings; ``profiled`` wraps the rank loop."""
@@ -1873,7 +1878,7 @@ def profile_moment_device(run, n_queries):
             "device_busy_share": device_ms / wall_ms if kernels else "not traced",
             "sq_l2_ms": sum(v for k, v in kernels.items() if "sq_l2_kernel" in k),
             "sort_kernels_ms": sum(v for k, v in kernels.items() if "sort" in k.lower()),
-            "ranges_ms": annotation_ms(prof),
+            "ranges_ms": span_ms(),
             "runtime_calls": calls, "n_kernel_names": len(kernels),
             "timings_s": timings,
             "top_kernels_ms": [[k[:90], v] for k, v in top]}
@@ -4118,15 +4123,15 @@ def phase_remnants(dev, *, triplets, nclass, embed_dim, clips, frames, crop, gal
     128x171 uint8 (the store's frames) → ``crop``; the crops on the card
     equal the host crop bit for bit, the normalized clips within 1e-6 of
     the host crop + normalize_clips on the CPU; its ms beside the host
-    crop's. StepTimer + sync: ``k1_calls`` K1 calls at ``k1_chunk``, each
-    step's total at least 0.9x the CUDA-event time of its call and the
-    call's end event complete when step returns. chunked_device_put: a
+    crop's. sync: ``k1_calls`` K1 calls at ``k1_chunk``, each call's host
+    time up to the end of ``sync`` at least 0.9x the CUDA-event time of the
+    call and the call's end event complete when ``sync`` returns. chunked_device_put: a
     seeded [gallery_rows, 512] fp32 array (the moment gallery's shape)
     uploaded by one .to() and chunked, in turns (one, chunked, chunked,
     one), bit-equal; seconds and peak device memory of each."""
     import torch
 
-    from vqwild_tpu_torch.core.profiling import StepTimer
+    from vqwild_tpu_torch.core.profiling import sync
     from vqwild_tpu_torch.core.transfer import chunked_device_put
     from vqwild_tpu_torch.ops import distance, stem_pool
     from vqwild_tpu_torch.ops.preprocess import (crop_clips_device, crop_clips_host,
@@ -4208,7 +4213,7 @@ def phase_remnants(dev, *, triplets, nclass, embed_dim, clips, frames, crop, gal
         norm_ms = time_ms(lambda: normalize_clips(dev_crop))
     del frames_dev, dev_crop, got
 
-    # --- StepTimer + sync around K1
+    # --- sync around K1
     gen = torch.Generator(device=dev).manual_seed(seed)
     nq, ng, d = k1_chunk
     q = torch.randn(nq, d, generator=gen, device=dev)
@@ -4216,22 +4221,23 @@ def phase_remnants(dev, *, triplets, nclass, embed_dim, clips, frames, crop, gal
     torch.testing.assert_close(distance.sq_l2(q, g), distance.pairwise_sq_l2(q, g), rtol=1e-5,
                                atol=1e-3)
     distance.launches.reset()  # the check above is not the path
-    timer = StepTimer(window=k1_calls)
     steps = []
     for _ in range(k1_calls):
         if not on_card:
-            timer.step(0.0, {"scores": [distance.sq_l2(q, g)]})
+            sync({"scores": [distance.sq_l2(q, g)]})
             continue
         ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
         ev0.record()
         out = distance.sq_l2(q, g)
         ev1.record()
-        total = timer.step(0.0, {"scores": [out]})
+        sync({"scores": [out]})
+        total = time.perf_counter() - t0
         done = ev1.query()
         steps.append({"step_ms": total * 1e3, "event_ms": ev0.elapsed_time(ev1), "done": done})
     bad = [s for s in steps if not s["done"] or s["step_ms"] < 0.9 * s["event_ms"]]
     if bad:
-        raise AssertionError(f"StepTimer did not wait for the card: {bad}")
+        raise AssertionError(f"sync did not wait for the card: {bad}")
 
     # --- chunked_device_put
     t0 = time.perf_counter()

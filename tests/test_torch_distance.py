@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from vqwild_tpu_torch.core import profiling
 from vqwild_tpu_torch.ops import _build, distance
 
 
@@ -164,7 +165,7 @@ class TestWrapper:
 
     def test_launch_count_loses_no_update_across_threads(self):
         """The HTTP handler threads launch kernels concurrently."""
-        count = _build.LaunchCount()
+        count = profiling.Counter()
         old = sys.getswitchinterval()
         sys.setswitchinterval(1e-6)
         try:

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from vqwild_tpu_torch.apps import cli
+from vqwild_tpu_torch.core import profiling
 from vqwild_tpu_torch.core.logging import get_logger
 
 # the trimmed metrics of one export through both packages' command lines:
@@ -167,9 +168,10 @@ def test_resume_schedule_equals_jax(cycle, tmp_path):
     the port's first run makes the epochs and steps of JAX's run_training
     over the same two epochs (batch 14 of the 14 triplets a tiny epoch
     holds: one step an epoch), and its resume starts at the epoch after
-    JAX's ``last``. JAX's own --resume is not run: on the tests' 8 virtual
-    devices its restored state sits on one device and its step refuses the
-    mesh-sharded batch."""
+    JAX's ``last``; the profiled run's trace holds the recorder's spans.
+    JAX's own --resume is not run: on the tests' 8 virtual devices its
+    restored state sits on one device and its step refuses the mesh-sharded
+    batch."""
     from vqwild_tpu.apps import cli as jax_cli
     from vqwild_tpu.train.checkpoint import CheckpointManager as JaxCheckpointManager
 
@@ -191,4 +193,10 @@ def test_resume_schedule_equals_jax(cycle, tmp_path):
 
     assert schedule(first) == schedule(_metrics(jax_run, "train_history")) == [(0, 1), (1, 1)]
     assert schedule(resumed) == [(jax_start, 1)] and jax_start == 2
-    assert os.path.getsize(os.path.join(port, "profile", "trace.json")) > 0
+    with open(os.path.join(port, "profile", "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    # the recorder's spans, a process of their own in the profiler's trace
+    spans = [e for e in events if e.get("pid") == profiling.TRACK_PID and e.get("ph") == "X"]
+    assert {"train.data_wait", "train.upload", "train.step", "step.forward", "step.backward",
+            "step.optimizer", "heads.memory_update", "loader.build"} <= {e["name"] for e in spans}
+    assert [e["args"]["id"] for e in spans if e["name"] == "train.step"] == [repr((2, 0))]

@@ -31,6 +31,16 @@ COUNTERPARTS = {
 
 # public JAX names with no twin, and why none is needed
 JAX_ONLY = {
+    "core/meters.py": {
+        "MedianMeter": "no caller; the port's timings are the recorder's spans "
+                       "(core/profiling.py)",
+        "Timer": "the training loop times its data wait on time.perf_counter, as the "
+                 "span train.data_wait",
+    },
+    "core/profiling.py": {
+        "StepTimer": "a rolling mean of synced step times that no caller read; the "
+                     "recorder's spans and device markers time the steps",
+    },
     "models/heads.py": {
         "dense_torch": "a flax Dense built with torch.nn.Linear's init; the port uses nn.Linear",
         "torch_bias_init": "a flax initialiser mimicking torch's bias init, which the port has",
@@ -105,5 +115,6 @@ def test_every_public_name_has_a_twin(mod):
 
 
 def test_the_allowlist_is_eleven_names():
-    assert sum(len(v) for v in JAX_ONLY.values()) == 11
+    # eleven names, and the three tracing remnants that no caller read
+    assert sum(len(v) for v in JAX_ONLY.values()) == 14
     assert set(JAX_ONLY) <= set(jax_modules())

@@ -4,8 +4,7 @@
   on the cases of tests/test_preprocess.py: crops bit-equal to the host
   crop, the normalized clips within 1e-6 of JAX's and of the host path;
   offsets read as ``jax.lax.dynamic_slice`` reads them;
-- ``core.profiling.sync`` over nested trees, and ``StepTimer`` against
-  JAX's on a fake clock;
+- ``core.profiling.sync`` over nested trees;
 - ``core.transfer.chunked_device_put`` exact at 1-D, small and multi-chunk
   sizes, as JAX's is;
 - each of them asks for ``cuda`` by default and raises without a GPU.
@@ -18,7 +17,6 @@ import numpy as np
 import pytest
 import torch
 
-from vqwild_tpu.core import profiling as jprof
 from vqwild_tpu.core.transfer import chunked_device_put as jput
 from vqwild_tpu.ops import preprocess as jpre
 from vqwild_tpu_torch.core import profiling as tprof
@@ -69,23 +67,6 @@ def test_sync_walks_nested_trees():
             "c": {"d": ({"e": torch.arange(4)},)}}
     assert tprof.sync(tree) is None
     assert tprof.sync([]) is None and tprof.sync(torch.ones(1)) is None
-
-
-def test_step_timer_against_jax(monkeypatch):
-    readings = [10.0, 10.5, 11.25, 13.0, 13.1, 16.0, 17.0]
-    for mod in (jprof, tprof):  # each module's own clock, the same readings
-        ticks = iter(readings)
-        monkeypatch.setattr(mod, "time", SimpleNamespace(time=lambda ticks=ticks: next(ticks)))
-    j, t = jprof.StepTimer(window=3), tprof.StepTimer(window=3)
-    for data_time in (0.1, 0.2, 0.05, 0.3, 0.0):
-        want = j.step(data_time, {"x": np.ones(2)})
-        got = t.step(data_time, {"x": [torch.ones(2)]})
-        assert got == want
-        assert t.samples == j.samples
-        assert (t.avg_total, t.avg_data) == (j.avg_total, j.avg_data)
-    assert len(t.samples) == 3 and t.samples[-1] == (0.0, 16.0 - 13.1)
-    empty = tprof.StepTimer()
-    assert empty.avg_total == 0.0 and empty.avg_data == 0.0
 
 
 ARRAYS = {

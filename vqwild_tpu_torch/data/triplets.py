@@ -37,6 +37,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from vqwild_tpu_torch.core import profiling
 from vqwild_tpu_torch.core.logging import get_logger
 from vqwild_tpu_torch.data.clips import (
     RawClip,
@@ -198,6 +199,9 @@ class PrefetchLoader:
     Threads (not processes) suffice because the packed frame store is
     zero-decode memmap I/O which releases the GIL in numpy; for the JPEG
     parity backend raise ``workers``.
+
+    Under a profiler each worker records the span ``loader.build`` a batch,
+    with the id (epoch, batch index), and the counter ``loader.batches``.
     """
 
     def __init__(
@@ -252,11 +256,13 @@ class PrefetchLoader:
                 np.random.SeedSequence([self.seed, epoch_idx, widx])
             )
             try:
-                for _ in range(widx, n_steps, self.workers):
+                for k in range(widx, n_steps, self.workers):
                     if stop.is_set():
                         return
-                    put(queues[widx], self.dataset.build_batch(rng, self.batch_size,
-                                                               self.shard))
+                    with profiling.span("loader.build", (epoch_idx, k)):
+                        batch = self.dataset.build_batch(rng, self.batch_size, self.shard)
+                    profiling.count("loader.batches")
+                    put(queues[widx], batch)
             except Exception as exc:  # handed to the consumer, which raises it
                 put(queues[widx], exc)
 

@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vqwild_tpu_torch.core import profiling
+
 
 class TorchBatchNorm(nn.Module):
     """BatchNorm over dim 1 with torch's running-statistics semantics, the
@@ -224,21 +226,23 @@ def ema_memory_update(memory: torch.Tensor, embeds: torch.Tensor, targets: torch
     per row) skips the rows whose weight is 0. Rows are indexed with length-1
     index tensors, so the loop never waits for the device. Under a ``mesh``
     the rows of every rank are gathered in global order and every rank runs
-    the same loop over them, so the memory replicas stay bit-identical."""
-    mem = memory.clone()
-    embeds = embeds.detach()
-    if mesh is not None and mesh.size > 1:
-        embeds = mesh.gather(embeds)
-        targets = mesh.gather(targets)
-        weights = None if weights is None else mesh.gather(weights)
-    for i in range(embeds.shape[0]):
-        y = targets[i : i + 1]
-        old = mem.index_select(0, y)
-        upd = l2_normalize(mv * old + (1.0 - mv) * embeds[i : i + 1], axis=-1)
-        if weights is not None:
-            upd = torch.where(weights[i : i + 1, None] > 0, upd, old)
-        mem.index_copy_(0, y, upd.to(mem.dtype))
-    return mem
+    the same loop over them, so the memory replicas stay bit-identical.
+    Under a profiler it records the span ``heads.memory_update``."""
+    with profiling.span("heads.memory_update"):
+        mem = memory.clone()
+        embeds = embeds.detach()
+        if mesh is not None and mesh.size > 1:
+            embeds = mesh.gather(embeds)
+            targets = mesh.gather(targets)
+            weights = None if weights is None else mesh.gather(weights)
+        for i in range(embeds.shape[0]):
+            y = targets[i : i + 1]
+            old = mem.index_select(0, y)
+            upd = l2_normalize(mv * old + (1.0 - mv) * embeds[i : i + 1], axis=-1)
+            if weights is not None:
+                upd = torch.where(weights[i : i + 1, None] > 0, upd, old)
+            mem.index_copy_(0, y, upd.to(mem.dtype))
+        return mem
 
 
 def param_free_layernorm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

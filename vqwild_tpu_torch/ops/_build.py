@@ -33,23 +33,6 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
-class LaunchCount:
-    """Launches of one kernel. Thread-safe: the HTTP handler threads embed
-    clips concurrently."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self.n = 0
-
-    def add(self) -> None:
-        with self._lock:
-            self.n += 1
-
-    def reset(self) -> None:
-        with self._lock:
-            self.n = 0
-
-
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
     cand = os.path.join(cuda_home, "bin", "nvcc")

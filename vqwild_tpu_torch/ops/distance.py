@@ -25,10 +25,11 @@ import ctypes
 
 import torch
 
+from vqwild_tpu_torch.core import profiling
 from vqwild_tpu_torch.ops import _build
 from vqwild_tpu_torch.ops.tf32 import tf32_split
 
-launches = _build.LaunchCount()
+launches = profiling.Counter()  # launches of the kernel
 
 
 def pairwise_sq_l2(q: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

@@ -19,10 +19,11 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from vqwild_tpu_torch.core import profiling
 from vqwild_tpu_torch.ops import _build
 from vqwild_tpu_torch.ops.tf32 import tf32_split
 
-launches = _build.LaunchCount()
+launches = profiling.Counter()  # launches of the kernel
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -56,8 +56,8 @@ from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from vqwild_tpu_torch.core import profiling
 from vqwild_tpu_torch.core.device import resolve_device
 from vqwild_tpu_torch.core.logging import get_logger
 from vqwild_tpu_torch.ops.ranking import ap_from_sorted, gather_scores
@@ -152,7 +152,7 @@ def _nms_sorted(ss, st, en, thresh: float, tile_elems: int = _TILE_ELEMS):
     for s0 in range(0, w, k):
         blk = slice(s0, s0 + k)
         stb, enb, lnb = st[..., blk], en[..., blk], lens[..., blk]
-        with record_function("moment_device.nms_pairs"):
+        with profiling.span("moment_device.nms_pairs"):
             hit_b = torch.empty((q, vb, k, k), dtype=torch.bool, device=ss.device)
             for v0 in range(0, vb, vt_block):
                 v = slice(v0, v0 + vt_block)
@@ -162,13 +162,13 @@ def _nms_sorted(ss, st, en, thresh: float, tile_elems: int = _TILE_ELEMS):
                 )
             hit_b &= tri
         supp_b = supp[..., blk]
-        with record_function("moment_device.nms_block"):
+        with profiling.span("moment_device.nms_block"):
             for i in range(k):
                 supp_b |= torch.gt(hit_b[:, :, i, :], supp_b[:, :, i : i + 1])
         if s0 + k == w:
             continue
         # kept block slots suppress every later slot
-        with record_function("moment_device.nms_cross"):
+        with profiling.span("moment_device.nms_cross"):
             kept_b = ~supp_b
             for v0 in range(0, vb, vt_cross):
                 v = slice(v0, v0 + vt_cross)
@@ -214,7 +214,7 @@ def _chunk_metrics_core(
     vbest_score, vbest_idx = [], []
     for b in buckets:
         vb, w = b["gather"].shape
-        with record_function("moment_device.bucket_sort"):
+        with profiling.span("moment_device.bucket_sort"):
             sb = torch.index_select(s_ext, 1, b["gather"].view(-1)).view(q, vb, w)
             key, order = torch.sort(-sb, dim=2, stable=True)
             del sb
@@ -227,7 +227,7 @@ def _chunk_metrics_core(
             lab, hit = take(b["labels"]), take(b["hit_ok"])
             gidx0 = torch.gather(b["gather"].expand(q, vb, w), 2, order[:, :, :1])
             del key, order
-        with record_function("moment_device.nms"):
+        with profiling.span("moment_device.nms"):
             kept = _nms_sorted(ss, stt, enn, nms_threshold)
         del stt, enn
         igb = (b["vglob"][None, :, None] == ignore_vids[:, None, :]).any(dim=-1)  # [Q, Vb]
@@ -278,7 +278,7 @@ def _chunk_metrics_core(
         ap_tp.append(tp_ap.reshape(q, -1))
     del per_bucket
 
-    with record_function("moment_device.ap_sort"):
+    with profiling.span("moment_device.ap_sort"):
         s_m = torch.cat(ap_scores, dim=1)
         t_m = torch.cat(ap_tp, dim=1)
         del ap_scores, ap_tp
@@ -322,7 +322,7 @@ def _scan_metrics(
     """
     out = []
     for qr, ql, ig in zip(q_rows, q_label, ignore_vids):
-        with record_function("moment_device.score"):
+        with profiling.span("moment_device.score"):
             scores = gather_scores(q_bank, gallery, qr)
         out.append(_pack(*_chunk_metrics_core(
             scores, ql, ig, buckets, n_moments, nms_threshold, tp_when_no_match,

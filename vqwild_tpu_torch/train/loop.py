@@ -11,6 +11,14 @@ On a CUDA device each batch goes up through pinned host memory on a side
 stream while the step before it runs, and the losses are read back once a
 print, never once a step: between prints the host never waits on the card.
 
+Under a profiler the loop records (core/profiling.py) the spans
+``train.data_wait`` (the next batch from the loader), ``train.upload``,
+``train.step``, ``train.drain`` (the losses' readback), ``train.checkpoint``
+and ``train.validate``, each with the id (epoch, step), and the counters
+``train.steps``, ``train.clips`` (rows), ``train.upload_bytes`` and
+``train.host_syncs`` (drains). The ``dataload=`` log is the mean wait for
+the loader's next batch.
+
 Under a ``mesh`` (parallel/mesh.py) every rank runs this loop over the same
 global batches: rows pad (edge-repeat) to a multiple of the world size, a
 0/1 weight marks the padding, and each rank uploads only its row block.
@@ -23,13 +31,15 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from vqwild_tpu_torch.core import profiling
 from vqwild_tpu_torch.core.logging import get_logger
-from vqwild_tpu_torch.core.meters import AverageMeter, Timer
+from vqwild_tpu_torch.core.meters import AverageMeter
 from vqwild_tpu_torch.parallel.mesh import rank_rows
 from vqwild_tpu_torch.train.checkpoint import CheckpointManager, last_payload
 from vqwild_tpu_torch.train.step import TrainState
@@ -109,6 +119,7 @@ class TrainLoop:
         on it does not), and each tensor is marked as used by the compute
         stream, so that its memory is not reused while a step still reads it."""
         tensors = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
+        profiling.count("train.upload_bytes", sum(t.nbytes for t in tensors))
         if self._dev.type == "cpu":
             return tensors
         if self._dev.type != "cuda":
@@ -180,13 +191,22 @@ class TrainLoop:
 
     def run(self, state: TrainState) -> LoopResult:
         self._dev = next(state.model.parameters()).device
+        profiling.begin(self._dev)
         best_score, best_epoch = -1.0, -1
         history = []
         for epoch in range(self.start_epoch, self.epochs):
-            timer = Timer()
-            data_time = AverageMeter()
+            data_wait = AverageMeter()
             loss_meters: Dict[str, AverageMeter] = {}
             nsteps = 0
+
+            def waited(fetch, sid):
+                """``fetch()``, its time the loop's wait for data."""
+                t0 = time.perf_counter()
+                out = fetch()
+                t1 = time.perf_counter()
+                data_wait.update(t1 - t0)
+                profiling.add("train.data_wait", t0, t1, sid)
+                return out
 
             def capped():
                 for i, b in enumerate(self.loader.epoch(epoch)):
@@ -199,9 +219,12 @@ class TrainLoop:
                 meters in step order; then the non-finite check."""
                 if not pending:
                     return
-                flat = [(k, torch.as_tensor(v, dtype=torch.float64).reshape(-1))
-                        for entry in pending for k, v in entry.items()]
-                host = torch.cat([v for _, v in flat]).cpu().numpy()
+                with profiling.span("train.drain", (epoch, nsteps)):
+                    flat = [(k, torch.as_tensor(v, dtype=torch.float64).reshape(-1))
+                            for entry in pending for k, v in entry.items()]
+                    host = torch.cat([v for _, v in flat]).cpu().numpy()
+                profiling.count("train.host_syncs")
+                profiling.settle()
                 pending.clear()
                 bad = None
                 at = 0
@@ -234,34 +257,41 @@ class TrainLoop:
                     " ".join(
                         f"{k}={m.avg:.4f}" for k, m in sorted(loss_meters.items())
                     ),
-                    data_time.avg,
+                    data_wait.avg,
                     best_score,
                 )
 
-            def call(fn, arrays):
+            def call(fn, arrays, sid, steps):
                 *arrs, weights = arrays
-                if weights is None:
-                    return fn(state, *arrs)
-                return fn(state, *arrs, weights=weights)
+                with profiling.span("train.step", sid):
+                    out = (fn(state, *arrs) if weights is None
+                           else fn(state, *arrs, weights=weights))
+                profiling.count("train.steps", steps)
+                profiling.count("train.clips", arrs[-1].numel())
+                return out
 
             next_print = self.print_freq
             if self.scan_steps > 1:
                 it = iter(capped())
                 while True:
-                    group = list(itertools.islice(it, self.scan_steps))
+                    sid = (epoch, nsteps)
+                    group = waited(lambda: list(itertools.islice(it, self.scan_steps)), sid)
                     if not group:
                         break
-                    data_time.update(timer.tick())
                     if len(group) == self.scan_steps:
-                        state, losses = call(self.scan_fn, self._put_group(group))
+                        with profiling.span("train.upload", sid):
+                            arrays = self._put_group(group)
+                        state, losses = call(self.scan_fn, arrays, sid, len(group))
                         nsteps += len(group)
                         pending.append(losses)
                     else:  # epoch tail < scan window → per-step fn
                         for b in group:
-                            state, losses = call(self.step_fn, self._put(b))
+                            sid = (epoch, nsteps)
+                            with profiling.span("train.upload", sid):
+                                arrays = self._put(b)
+                            state, losses = call(self.step_fn, arrays, sid, 1)
                             nsteps += 1
                             pending.append(losses)
-                    timer.tick()
                     if nsteps >= next_print:
                         next_print += self.print_freq
                         progress_log(nsteps)
@@ -269,18 +299,19 @@ class TrainLoop:
                 # one-batch lookahead: batch k+1 goes up while step k runs
                 def batches():
                     it = iter(capped())
-                    nxt = next(it, None)
+                    nxt = waited(lambda: next(it, None), (epoch, 0))
+                    k = 0
                     while nxt is not None:
-                        cur = self._put(nxt)
-                        nxt = next(it, None)
+                        with profiling.span("train.upload", (epoch, k)):
+                            cur = self._put(nxt)
+                        nxt = waited(lambda: next(it, None), (epoch, k + 1))
                         yield cur
+                        k += 1
 
                 for i, arrays in enumerate(batches()):
-                    data_time.update(timer.tick())
-                    state, losses = call(self.step_fn, arrays)
+                    state, losses = call(self.step_fn, arrays, (epoch, i), 1)
                     nsteps += 1
                     pending.append(losses)
-                    timer.tick()
                     if i % self.print_freq == 0 and i > 0:
                         progress_log(i)
             drain(pending)
@@ -300,23 +331,27 @@ class TrainLoop:
             if self.ckpt is not None:
                 # the full training state, for a resume mid-training (the
                 # reference saves best only, SURVEY §5)
-                self.ckpt.save("last", last_payload(state, epoch))
+                with profiling.span("train.checkpoint", (epoch, nsteps)):
+                    self.ckpt.save("last", last_payload(state, epoch))
 
             is_eval_epoch = (
                 self.eval_fn is not None and (epoch + 1) % self.eval_per_epoch == 0
             )
             if is_eval_epoch:
-                score = self.eval_fn(state, epoch)
+                with profiling.span("train.validate", (epoch, nsteps)):
+                    score = self.eval_fn(state, epoch)
                 ap = self._agreed(float(score.get("ap", 0.0)))
                 entry["ap"] = ap
                 log.warning("epoch %d validation ap=%.4f (best %.4f)", epoch, ap, best_score)
                 if ap > best_score:
                     best_score, best_epoch = ap, epoch
                     if self.ckpt is not None:
-                        self.ckpt.save(
-                            "best",
-                            dict(model=state.model.state_dict(), epoch=epoch, score=ap),
-                        )
+                        with profiling.span("train.checkpoint", (epoch, nsteps)):
+                            self.ckpt.save(
+                                "best",
+                                dict(model=state.model.state_dict(), epoch=epoch, score=ap),
+                            )
+        profiling.settle()
         return LoopResult(
             state=state, best_score=best_score, best_epoch=best_epoch, history=history
         )

@@ -32,6 +32,13 @@ each rank), and the gradients are summed over the ranks before the
 optimizer, in flat buckets, once an update (under ``accum_grad`` on the
 update's call only). The losses come back summed over the ranks, so every
 rank sees the same values and halts on a NaN with the others.
+
+Under a profiler a step records (core/profiling.py) the spans
+``step.forward`` (normalize, model, losses), ``step.backward``
+(``torch.autograd.grad``) and ``step.optimizer``, ``step.allreduce``
+around the gradients' sum under a mesh, and device markers on the compute
+stream at the start of each of the three phases and at the optimizer's end
+(``step.end``): the device time between two markers is the phase's.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vqwild_tpu_torch.core import profiling
 from vqwild_tpu_torch.models.arv import ARVModel
 from vqwild_tpu_torch.ops.preprocess import normalize_clips, normalize_clips_yuv420
 
@@ -157,7 +165,8 @@ def _optimizer_update(state: TrainState, grads: List[torch.Tensor], mesh=None) -
             return
         grads, state.grad_acc = state.grad_acc, None
     if mesh is not None:
-        sum_gradients(grads, mesh)
+        with profiling.span("step.allreduce"):
+            sum_gradients(grads, mesh)
     params = [p for group in state.optimizer.param_groups for p in group["params"]]
     for p, g in zip(params, grads):
         p.grad = g
@@ -202,6 +211,27 @@ def make_train_step(model: ARVModel, tx: OptimizerConfig, semantic_memory=None,
     def step_fn(state: TrainState, *wire_and_labels, weights=None):
         if state.model is not model:
             raise ValueError("the state holds another model than this step's")
+        profiling.mark("step.forward")
+        with profiling.span("step.forward"):
+            total, losses = forward(state, wire_and_labels, weights)
+        profiling.mark("step.backward")
+        params = [p for group in state.optimizer.param_groups for p in group["params"]]
+        with profiling.span("step.backward"):
+            grads = torch.autograd.grad(total, params, allow_unused=True)
+        profiling.mark("step.optimizer")
+        with profiling.span("step.optimizer"):
+            _optimizer_update(state, [torch.zeros_like(p) if g is None else g
+                                      for p, g in zip(params, grads)], mesh)
+        profiling.mark("step.end")
+        state.step += 1
+        if mesh is None:
+            return state, {k: v.detach() for k, v in losses.items()}
+        names = list(losses)
+        summed = mesh.all_sum(torch.stack([losses[k].detach().float() for k in names]))
+        return state, dict(zip(names, summed.unbind(0)))
+
+    def forward(state: TrainState, wire_and_labels, weights):
+        """→ (the total loss, the losses by name)."""
         *wire_arrays, labels = wire_and_labels
         labels = to_dev(labels, torch.long)
         w = None if weights is None else to_dev(weights, torch.float32)
@@ -260,17 +290,7 @@ def make_train_step(model: ARVModel, tx: OptimizerConfig, semantic_memory=None,
             losses["ranking_loss"] = rank_loss
             total = total + ranking_weight * rank_loss
         losses["loss"] = total
-
-        params = [p for group in state.optimizer.param_groups for p in group["params"]]
-        grads = torch.autograd.grad(total, params, allow_unused=True)
-        _optimizer_update(state, [torch.zeros_like(p) if g is None else g
-                                  for p, g in zip(params, grads)], mesh)
-        state.step += 1
-        if mesh is None:
-            return state, {k: v.detach() for k, v in losses.items()}
-        names = list(losses)
-        summed = mesh.all_sum(torch.stack([losses[k].detach().float() for k in names]))
-        return state, dict(zip(names, summed.unbind(0)))
+        return total, losses
 
     return step_fn
 
