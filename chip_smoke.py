@@ -396,6 +396,11 @@ MOMENT_DEVICE_CHUNK, MOMENT_SCAN_CHUNKS = 32, 16
 # of 32 x 112x112 clips a step, 200 classes, 200-d word embeddings
 TRAIN_TRIPLETS, TRAIN_NCLASS, TRAIN_SEM_DIM = 10, 200, 200
 TRAIN_WARMUP, TRAIN_TIMED = 2, 10
+# K3 against a float64 conv, as a share of the reference's largest entry,
+# the tests' limit (tests/test_torch_conv.py CARD_TOL, with the readings of
+# a pass that drops a correction product and of one TF32 pass)
+CONV_TOL = {"fwd": 5e-6, "dgrad": 5e-6, "wgrad": 5e-6}
+CONV_SMALL_FRAMES = 4
 # the training loop at the JAX package's defaults (core/config.py): 10
 # triplets a step, 8 loader threads (capped at the host's cores), va; 2
 # epochs of 12 steps, a print every 4; the validation split cut to 25 base
@@ -2336,6 +2341,245 @@ def train_run(dev, method, dtype, wire, data, sem, *, warmup, timed):
            "params": sum(p.numel() for p in model.parameters()), "losses": losses}
     emit(row)
     return row
+
+
+def host_launch(dev, *, triplets, frames, crop, warmup, timed):
+    """The host's own time to launch one fp32 va step on the yuv420 wire
+    (the benchmark's ``va-train`` shapes), with the launch queue empty: a
+    synchronize, then the host clock to ``step_fn``'s return; then the
+    device's whole step, to a synchronize. Medians over ``timed`` steps.
+    A step whose host time nears its device time blocked on the queue or
+    waited for the device inside the step."""
+    import torch
+
+    from vqwild_tpu_torch.core.config import ModelConfig
+    from vqwild_tpu_torch.models.arv import build_model
+    from vqwild_tpu_torch.ops.preprocess import rgb_to_yuv420_host
+    from vqwild_tpu_torch.train.step import create_train_state, make_optimizer, make_train_step
+
+    cfg = ModelConfig(method="va", nclass=TRAIN_NCLASS, compute_dtype="float32")
+    model = build_model(cfg, device=dev, seed=0)
+    tx = make_optimizer(init_lr=1e-4, weight_decay=1e-5, steps_per_epoch=100, lr_decay_epoch=9)
+    state = create_train_state(model, tx, seed=1)
+    step = make_train_step(model, tx, wire="yuv420")
+    clips, labels = train_batches(1, triplets=triplets, frames=frames, crop=crop,
+                                  nclass=TRAIN_NCLASS, seed=16)[0]
+    arrays = tuple(torch.from_numpy(a).to(dev) for a in rgb_to_yuv420_host(clips))
+    labels = torch.from_numpy(labels).to(dev)
+    host, whole = [], []
+    for i in range(warmup + timed):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, _ = step(state, *arrays, labels)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize(dev)
+        t2 = time.perf_counter()
+        if i >= warmup:
+            host.append((t1 - t0) * 1e3)
+            whole.append((t2 - t0) * 1e3)
+    del model, state, step
+    torch.cuda.empty_cache()
+    out = {"phase": "host_launch", "device": torch.cuda.get_device_name(dev),
+           "card": card_line(), "clips": 3 * triplets, "frames": frames, "crop": crop,
+           "steps": timed, "host_ms_median": float(np.median(host)),
+           "host_ms_min": min(host), "host_ms_max": max(host),
+           "step_ms_median": float(np.median(whole)), "host_ms": host}
+    emit(out)
+    return out
+
+
+def conv_passes(x, w, gy, stride, padding):
+    """K3's three passes, the plain version's (``F.conv2d`` and its
+    autograd's backward op on the same channels_last tensors) and the
+    library's (cuDNN on NCHW-contiguous copies), as {pass: (kernel, plain,
+    library)} of calls."""
+    import torch
+
+    from vqwild_tpu_torch.ops import conv
+
+    geo = conv.geometry(x.shape, w.shape, stride, padding) + (stride, padding)
+    xh, gyh = x.permute(0, 2, 3, 1), gy.permute(0, 2, 3, 1)
+    w4 = w[:, :, 0]
+
+    def backward(xx, gg, mask):
+        return torch.ops.aten.convolution_backward(
+            gg, xx, w4, None, [stride, stride], [padding, padding], [1, 1], False, [0, 0], 1,
+            mask)
+
+    xc, gyc = x.contiguous(), gy.contiguous()
+    return {
+        "fwd": (lambda: conv.forward_nhwc(xh, w, geo),
+                lambda: conv.conv2d_plain(x, w, stride, padding),
+                lambda: conv.conv2d_plain(xc, w, stride, padding)),
+        "dgrad": (lambda: conv.input_grad_nhwc(gyh, w, geo),
+                  lambda: backward(x, gy, [True, False, False]),
+                  lambda: backward(xc, gyc, [True, False, False])),
+        "wgrad": (lambda: conv.weight_grad(xh, gyh, w, geo),
+                  lambda: backward(x, gy, [False, True, False]),
+                  lambda: backward(xc, gyc, [False, True, False])),
+    }
+
+
+def conv_work(n, c, h, w, k, r, stride, padding):
+    """Operations and bytes of one pass of a conv (each pass multiplies the
+    same pairs): 2·N·P·Q·K·C·R² and the fp32 bytes of its two inputs and its
+    output (forward x, w → y; input gradient dy, w → dx; weight gradient x,
+    dy → dw), each read or written once. The forward and the weight
+    gradient read only the pixels of x that a tap meets: all of them for a
+    3x3 kernel, one in stride² (N·C·P·Q) for a 1x1; the input gradient
+    writes the whole of dx."""
+    from vqwild_tpu_torch.ops.conv import out_size
+
+    p, q = out_size(h, w, r, stride, padding)
+    flops = 2.0 * n * p * q * k * c * r * r
+    x, y, wt = n * c * h * w, n * k * p * q, k * c * r * r
+    x_read = n * c * p * q if r == 1 else x
+    return flops, {"fwd": 4.0 * (x_read + wt + y), "dgrad": 4.0 * (y + wt + x),
+                   "wgrad": 4.0 * (x_read + y + wt)}
+
+
+def phase_conv(dev, *, frames, crop, small_frames, triplets, train_frames):
+    """K3 at every block conv of the train step (``frames`` frames of crop x
+    crop, and ``small_frames`` for the check alone): each pass held to a
+    float64 conv of the same fp32 inputs (CONV_TOL), and at ``frames`` timed
+    against its bound (165 TFLOP/s of 3xTF32 or 3.35 TB/s, the larger), the
+    plain version and the library. Then one fp32 va train step at the
+    benchmark's shapes (``triplets`` x 3 clips of ``train_frames``): it must
+    launch each pass once per block conv, and leave the stem as the only
+    cuDNN conv (a profiled step); a bf16 step launches none."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from vqwild_tpu_torch.core import profiling
+    from vqwild_tpu_torch.core.config import ModelConfig
+    from vqwild_tpu_torch.models.arv import build_model
+    from vqwild_tpu_torch.models.resnet_f2f import ResNet18F2F, block_convs
+    from vqwild_tpu_torch.ops import conv
+    from vqwild_tpu_torch.ops.preprocess import rgb_to_yuv420_host
+    from vqwild_tpu_torch.train.step import create_train_state, make_optimizer, make_train_step
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rows, seen, failed = [], {}, []
+    trunk = ResNet18F2F()
+    for nf in (small_frames, frames):
+        for name, (n, c, h, w), (k, r, stride, padding) in block_convs(trunk, nf, crop):
+            key = (n, c, h, w, k, r, stride, padding)
+            if key in seen:  # the same geometry as an earlier conv of the trunk
+                seen[key]["convs"].append(name)
+                continue
+            x = torch.randn(n, c, h, w, generator=gen, device=dev).contiguous(
+                memory_format=torch.channels_last)
+            wt = torch.randn(k, c, 1, r, r, generator=gen, device=dev) * (2.0 / (k * r * r)) ** 0.5
+            p, q = conv.out_size(h, w, r, stride, padding)
+            gy = torch.randn(n, k, p, q, generator=gen, device=dev).contiguous(
+                memory_format=torch.channels_last)
+            x64 = x.double().requires_grad_()
+            w64 = wt.double().requires_grad_()
+            y64 = F.conv2d(x64, w64[:, :, 0], stride=stride, padding=padding)
+            want = dict(zip(("fwd", "dgrad", "wgrad"),
+                            (y64.detach(),) + torch.autograd.grad(y64, (x64, w64), gy.double())))
+            del x64, w64, y64
+            calls = conv_passes(x, wt, gy, stride, padding)
+            flops, nbytes = conv_work(n, c, h, w, k, r, stride, padding)
+            row = {"phase": "conv", "convs": [name], "frames": nf, "x": [n, c, h, w],
+                   "cout": k, "kernel": r, "stride": stride, "padding": padding,
+                   "gflop": flops / 1e9}
+            for pname, (kern, plain, library) in calls.items():
+                got = kern()
+                if pname != "wgrad":
+                    got = got.permute(0, 3, 1, 2)
+                torch.cuda.synchronize()
+                ref = want[pname]
+                err = float((got.double() - ref).abs().max() / ref.abs().max())
+                if not err <= CONV_TOL[pname]:
+                    failed.append(f"K3 {pname} {name} {key}: relative error {err} > "
+                                  f"{CONV_TOL[pname]}")
+                base = plain()
+                base = base[0] if pname == "dgrad" else base[1] if pname == "wgrad" else base
+                cell = {"rel_err": err, "plain_rel_err": float(
+                    (base.double().reshape(ref.shape) - ref).abs().max() / ref.abs().max())}
+                del base
+                if nf == frames:
+                    b_ms, b_by = bound(nbytes[pname], 3.0 * flops, TF32_FLOPS,
+                                       "operations, 3xTF32")
+                    cell.update(kernel_ms=time_ms(kern), plain_ms=time_ms(plain),
+                                library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
+                    cell["bound_share"] = b_ms / cell["kernel_ms"]
+                row[pname] = cell
+                del got
+            del want, calls, x, gy
+            seen[key] = row
+            rows.append(row)
+    for row in rows:
+        emit(row)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    timed = [r for r in rows if r["frames"] == frames]
+    per_pass = {pname: {
+        "kernel_ms": sum(r[pname]["kernel_ms"] * len(r["convs"]) for r in timed),
+        "plain_ms": sum(r[pname]["plain_ms"] * len(r["convs"]) for r in timed),
+        "library_ms": sum(r[pname]["library_ms"] * len(r["convs"]) for r in timed),
+        "bound_ms": sum(r[pname]["bound_ms"] * len(r["convs"]) for r in timed)}
+        for pname in conv.PASSES}
+    torch.cuda.empty_cache()
+
+    # one train step each way: K3's launches, the relayouts, cuDNN's convs
+    clips, labels = train_batches(1, triplets=triplets, frames=train_frames, crop=crop,
+                                  nclass=TRAIN_NCLASS, seed=18)[0]
+    arrays = tuple(torch.from_numpy(a).to(dev) for a in rgb_to_yuv420_host(clips))
+    labels = torch.from_numpy(labels).to(dev)
+    steps = {}
+    for dtype in ("float32", "bfloat16"):
+        model = build_model(ModelConfig(method="va", nclass=TRAIN_NCLASS, compute_dtype=dtype),
+                            device=dev, seed=0)
+        tx = make_optimizer(init_lr=1e-4, weight_decay=1e-5, steps_per_epoch=100,
+                            lr_decay_epoch=9)
+        state = create_train_state(model, tx, seed=1)
+        step = make_train_step(model, tx, wire="yuv420")
+        state, _ = step(state, *arrays, labels)  # warm-up: builds, cuDNN's plans
+        torch.cuda.synchronize()
+        before = {p: conv.launches[p].n for p in conv.PASSES}
+        relaid = conv.relayouts.n
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, _ = step(state, *arrays, labels)
+            torch.cuda.synchronize()
+        counted = {p: conv.launches[p].n - before[p] for p in conv.PASSES}
+        recorded = {k: v for k, v in profiling.counters().items() if k.startswith("conv.")}
+        cudnn = {}
+        for e in prof.key_averages():
+            if e.key in ("aten::cudnn_convolution", "aten::convolution_backward"):
+                cudnn[e.key] = e.count
+        kernels = device_ms_by_kernel(prof)
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+        steps[dtype] = {"launches": counted, "recorder_counters": recorded,
+                        "relayouts": conv.relayouts.n - relaid, "cudnn_ops": cudnn,
+                        "device_ms": sum(kernels.values()),
+                        "k3_ms": sum(v for k, v in kernels.items()
+                                     if "fprop_kernel" in k or "wgrad_" in k
+                                     or "prep_weights" in k),
+                        "top_kernels_ms": [[k[:90], v] for k, v in top]}
+        del model, state, step
+        torch.cuda.empty_cache()
+    nconv = len(block_convs(trunk, frames, crop))
+    fp32 = steps["float32"]
+    if any(fp32["launches"][p] != nconv or fp32["recorder_counters"].get(f"conv.{p}") != nconv
+           for p in conv.PASSES):
+        raise AssertionError(f"an fp32 train step launched K3 {steps['float32']}, "
+                             f"not {nconv} a pass")
+    if fp32["cudnn_ops"] != {"aten::cudnn_convolution": 1, "aten::convolution_backward": 1}:
+        raise AssertionError(f"an fp32 train step ran cuDNN convs other than the stem's: "
+                             f"{fp32['cudnn_ops']}")
+    if any(steps["bfloat16"]["launches"].values()):
+        raise AssertionError(f"a bf16 train step launched K3: {steps['bfloat16']}")
+    out = {"phase": "conv_summary", "card": card_line(), "frames": frames, "crop": crop,
+           "block_convs": nconv, "per_pass_ms": per_pass,
+           "kernel_ms_all": sum(v["kernel_ms"] for v in per_pass.values()),
+           "library_ms_all": sum(v["library_ms"] for v in per_pass.values()),
+           "bound_ms_all": sum(v["bound_ms"] for v in per_pass.values()),
+           "steps": steps}
+    emit(out)
+    return out
 
 
 def phase_train(dev, *, triplets, frames, crop, warmup, timed):
@@ -4305,7 +4549,7 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    secs = _build.build(["sq_l2", "stem_pool"])
+    secs = _build.build(["sq_l2", "stem_pool", "conv_igemm"])
     ptxas = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln] for n in secs}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_kernel_s": secs,
@@ -4322,6 +4566,9 @@ def main() -> int:
                               k1_calls=REMNANTS_K1_CALLS)
     train = phase_train(dev, triplets=TRAIN_TRIPLETS, frames=FRAMES, crop=CROP,
                         warmup=TRAIN_WARMUP, timed=TRAIN_TIMED)
+    k3 = phase_conv(dev, frames=TRAIN_TRIPLETS * 3 * FRAMES, crop=CROP,
+                    small_frames=CONV_SMALL_FRAMES, triplets=TRAIN_TRIPLETS, train_frames=FRAMES)
+    host_launch(dev, triplets=TRAIN_TRIPLETS, frames=FRAMES, crop=CROP, warmup=3, timed=20)
     train_choices(dev, frames=TRAIN_TRIPLETS * 3 * FRAMES, crop=CROP)
     train_vs_cpu(dev, steps=3, batch=6, frames=2, crop=32)
     profile_train(dev, triplets=TRAIN_TRIPLETS, frames=FRAMES, crop=CROP)
@@ -4448,6 +4695,13 @@ def main() -> int:
          "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"].split(",")[0],
          "library_ms": k2_main["library_ms"], "shape": k2_main["shape"], "dtype": "float32",
          "dist_shard": {k: k2_dist[k] for k in chunk_keys}},
+        {"name": "conv_igemm", "route": "cuda", "source": "vqwild_tpu_torch/csrc/conv_igemm.cu",
+         "replaces": "no TPU kernel: cuDNN's fp32 (TF32 off) block convs",
+         "launches_per_train_step": k3["steps"]["float32"]["launches"],
+         "relayouts_per_train_step": k3["steps"]["float32"]["relayouts"],
+         "per_pass_ms": k3["per_pass_ms"], "ms": k3["kernel_ms_all"],
+         "bound_ms": k3["bound_ms_all"], "library_ms": k3["library_ms_all"],
+         "shape": "the 19 block convs of a train step, forward and both gradients"},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

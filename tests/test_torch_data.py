@@ -398,6 +398,17 @@ class TestHostPreprocess:
         with pytest.raises(ValueError, match="must be even"):
             pre.crop_yuv420_host(y, uv, offsets, flips, 11)
 
+    @pytest.mark.parametrize("flip", [False, True])
+    def test_crop_yuv420_takes_each_clips_planes(self, flip):
+        """A sequence of clips' planes crops as the stacked batch does (the
+        loader's path: no stacked copy of the whole frames)."""
+        y, uv = pre.rgb_to_yuv420_host(self._clips(seed=2))
+        offsets = np.array([[2, 4], [7, 1], [8, 12]], np.int32)
+        flips = np.array([flip, not flip, flip])
+        for a, b in zip(pre.crop_yuv420_host(list(y), list(uv), offsets, flips, 12),
+                        jpre.crop_yuv420_host(y, uv, offsets, flips, 12)):
+            np.testing.assert_array_equal(a, b)
+
     def test_device_normalize_matches_host_preprocess(self):
         import torch
 

@@ -143,11 +143,9 @@ def batch_cropped_clips_yuv(clips, size: int) -> Tuple[np.ndarray, np.ndarray]:
     (y [B,T,s,s], uv [B,T,s/2,s/2,2]) uint8."""
     from vqwild_tpu_torch.ops.preprocess import crop_yuv420_host
 
-    ys = np.stack([c.y for c in clips], axis=0)
-    uvs = np.stack([c.uv for c in clips], axis=0)
     offsets = np.array([[c.crop.top, c.crop.left] for c in clips], np.int32)
     flips = np.array([c.crop.flip for c in clips], bool)
-    return crop_yuv420_host(ys, uvs, offsets, flips, size)
+    return crop_yuv420_host([c.y for c in clips], [c.uv for c in clips], offsets, flips, size)
 
 
 def batch_raw_clips(clips) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -24,6 +24,7 @@ conv in fp32, the default compute dtype, and ~20% faster in bf16
 
 from __future__ import annotations
 
+import copy
 from typing import Sequence
 
 import torch
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vqwild_tpu_torch.models.heads import TorchBatchNorm
+from vqwild_tpu_torch.ops import conv
 
 BN_EPS = 1e-3  # stem and block BNs (resnet18_3d_f2f.py:40)
 BN_MOMENTUM = 0.01  # stem and block BNs, torch convention
@@ -40,7 +42,14 @@ DOWNSAMPLE_BN_MOMENTUM = 0.1
 
 class Conv2dF2F(nn.Module):
     """Bias-free 2D conv holding the reference's Conv3d weight [O,I,1,kh,kw],
-    run in the input's dtype."""
+    run in the input's dtype.
+
+    A CUDA fp32 input goes to kernel K3 (ops/conv.py: forward and both
+    gradients in three TF32 passes on the tensor cores, NHWC storage in and
+    out) wherever K3 takes the weight's shape: the BasicBlocks' convs, not
+    the 7x7 stem over 3 channels. Any other dtype on the card (bf16, whose
+    cuDNN convs already run on the tensor cores) and every CPU tensor take
+    ``F.conv2d``."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1, padding: int = 0):
         super().__init__()
@@ -50,8 +59,10 @@ class Conv2dF2F(nn.Module):
         self.padding = padding
 
     def forward(self, x):
-        return F.conv2d(x, self.weight[:, :, 0].to(x.dtype), stride=self.stride,
-                        padding=self.padding)
+        if (x.is_cuda and x.dtype == torch.float32
+                and conv.takes(self.weight.shape, self.stride, self.padding)):
+            return conv.conv2d(x, self.weight, self.stride, self.padding)
+        return conv.conv2d_plain(x, self.weight, self.stride, self.padding)
 
 
 class BasicBlock(nn.Module):
@@ -114,3 +125,22 @@ class ResNet18F2F(nn.Module):
                 x = block(x, train, mesh)
         return x.mean(dim=(2, 3)).reshape(b, t, -1).to(torch.promote_types(self.dtype,
                                                                           torch.float32))
+
+
+def block_convs(trunk: ResNet18F2F, frames: int, crop: int):
+    """The convs of ``trunk`` that K3 takes (the BasicBlocks'; not the 7x7
+    stem over 3 channels), in the order its trunk's forward runs them on
+    ``frames`` frames of crop x crop: (module name, input [N,C,H,W], (Cout,
+    kernel, stride, padding)) each. Read by forward hooks off a run of a
+    copy on the meta device: shapes alone, no memory and no kernel."""
+    meta = copy.deepcopy(trunk).to("meta")
+    seen = []
+    for name, m in meta.named_modules():
+        if isinstance(m, Conv2dF2F) and conv.takes(m.weight.shape, m.stride, m.padding):
+            m.register_forward_hook(
+                lambda mod, inp, out, name=name: seen.append(
+                    (name, tuple(inp[0].shape), (mod.weight.shape[0], mod.weight.shape[-1],
+                                                 mod.stride, mod.padding))))
+    with torch.no_grad():
+        ResNet18F2F.forward(meta, torch.empty(1, frames, crop, crop, 3, device="meta"))
+    return seen

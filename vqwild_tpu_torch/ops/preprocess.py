@@ -153,19 +153,20 @@ def yuv420_to_rgb_host(y_u8: np.ndarray, uv_u8: np.ndarray) -> np.ndarray:
 def crop_yuv420_host(y: np.ndarray, uv: np.ndarray, offsets, flips, size: int):
     """Whole-clip crop+flip directly in YUV420 planes.
 
-    y [B,T,H,W], uv [B,T,H/2,W/2,2] → cropped (y, uv) at ``size``. Crop
-    offsets are rounded down to even so the chroma grid stays aligned (a
-    ≤1-pixel shift vs the RGB path; ``size`` must be even)."""
+    y [B,T,H,W], uv [B,T,H/2,W/2,2] (arrays, or sequences of B clips' [T,
+    ...] planes: no stacked copy of the whole frames) → cropped (y, uv) at
+    ``size``. Crop offsets are rounded down to even so the chroma grid stays
+    aligned (a ≤1-pixel shift vs the RGB path; ``size`` must be even)."""
     if size % 2:
         raise ValueError("YUV420 crop size must be even")
-    b = y.shape[0]
-    oy = np.empty((b, y.shape[1], size, size), y.dtype)
-    ouv = np.empty((b, uv.shape[1], size // 2, size // 2, 2), uv.dtype)
+    b = len(y)
+    oy = np.empty((b, y[0].shape[0], size, size), y[0].dtype)
+    ouv = np.empty((b, uv[0].shape[0], size // 2, size // 2, 2), uv[0].dtype)
     for i in range(b):
         top = (int(offsets[i][0]) // 2) * 2
         left = (int(offsets[i][1]) // 2) * 2
-        cy = y[i, :, top : top + size, left : left + size]
-        cuv = uv[i, :, top // 2 : top // 2 + size // 2, left // 2 : left // 2 + size // 2, :]
+        cy = y[i][:, top : top + size, left : left + size]
+        cuv = uv[i][:, top // 2 : top // 2 + size // 2, left // 2 : left // 2 + size // 2, :]
         if flips[i]:
             cy = cy[:, :, ::-1]
             cuv = cuv[:, :, ::-1, :]

@@ -1,6 +1,6 @@
 """TF32 rounding in plain PyTorch, shared by the CPU emulations of the
 fp32 tensor-core kernels (``distance.pairwise_sq_l2_tf32_emulated``,
-``stem_pool.stem_s2d_pool_tf32_emulated``)."""
+``stem_pool.stem_s2d_pool_tf32_emulated``, ``conv.conv_tf32_emulated``)."""
 
 from __future__ import annotations
 
