@@ -198,6 +198,8 @@ class TestRunDir:
                 log=(path / "log.log").read_text().splitlines(),
                 backup=(path / backups[0]).read_text().splitlines())
         port, jax = runs["port"], runs["jax"]
+        # the port's own field, which the JAX config has not
+        assert port["config"]["model"].pop("trunk") == "resnet18_f2f"
         assert port["tree"] == jax["tree"] == [
             "cache", "checkpoints", "config.json", "log.log", "metrics", "metrics/eval.json"]
         assert port["config"] == jax["config"] and port["config"]["model"]["method"] == "va"

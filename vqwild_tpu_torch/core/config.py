@@ -5,7 +5,9 @@ mutated globally throughout) with frozen dataclasses. Defaults mirror the
 reference's hyperparameter constants (main.py:27-52).
 
 A copy of vqwild_tpu/core/config.py with the same fields and defaults, so a
-run's config JSON reads in either package; fields of slices that are not
+run's config JSON reads in either package, and one field of the port's
+own, ``ModelConfig.trunk`` (the JAX package reads past it; a JSON without
+it reads here as the ResNet18-F2F trunk); fields of slices that are not
 ported yet are carried and unused.
 """
 
@@ -64,6 +66,10 @@ class ModelConfig:
     # the 7x7 conv (models/resnet_f2f.py) and carries the field for the
     # config JSON
     stem_s2d: bool = False
+    # the trunk (models/arv.TRUNKS): "resnet18_f2f", the reference's, or
+    # "timesformer_divst" (models/timesformer.py); the port's field alone,
+    # which the JAX package's config has not
+    trunk: str = "resnet18_f2f"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -108,6 +108,18 @@ def _block_names(sd: Mapping[str, Any]):
     return out
 
 
+def require_resnet_trunk(state_dict: Mapping[str, Any], what: str) -> None:
+    """Raise unless ``state_dict`` holds the ResNet18-F2F trunk: ``what``
+    (BN folding, the int8 trunk) works on its convs and their BatchNorms,
+    which another trunk (TimeSformer's, models/timesformer.py) has not."""
+    if "conv1.weight" in state_dict and "bn1.running_var" in state_dict:
+        return
+    other = "a TimeSformer trunk" if "cls_token" in state_dict else "no ResNet18-F2F trunk"
+    raise ValueError(f"{what} takes the ResNet18-F2F trunk's convs and BatchNorms; this "
+                     f"state_dict holds {other}: embed it unfolded, "
+                     "retrieval.features.make_feat_fn(folded=False)")
+
+
 def fold_trunk_params(state_dict: Mapping[str, Any], *,
                       space_to_depth_stem: bool = False,
                       bn_eps: float = BN_EPS) -> Dict[str, dict]:
@@ -117,6 +129,7 @@ def fold_trunk_params(state_dict: Mapping[str, Any], *,
     returns. BN eps: block/stem ``bn_eps`` (the trained module's,
     ModelConfig.bn_eps, 1e-3 by default), downsample torch-default 1e-5
     whatever ``bn_eps`` is (the reference quirk)."""
+    require_resnet_trunk(state_dict, "BN folding")
     sd = state_dict
 
     def fold(conv_key, bn_prefix, eps):

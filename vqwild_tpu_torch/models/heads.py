@@ -327,12 +327,13 @@ class NonLocalND(_NonLocal):
 
 class SemanticAdaptor(nn.Module):
     """MLP 512→640→768→896→semantic_dim with inner ReLUs
-    (resnet18_vasa.py:75-89)."""
+    (resnet18_vasa.py:75-89); ``in_dim`` is the trunk's width (512 for the
+    reference's ResNet18-F2F)."""
 
-    def __init__(self, semantic_dim: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, semantic_dim: int, dtype: torch.dtype = torch.float32, in_dim: int = 512):
         super().__init__()
         self.dtype = dtype
-        self.fc = nn.Linear(512, 640)
+        self.fc = nn.Linear(in_dim, 640)
         self.fc2 = nn.Linear(640, 768)
         self.fc3 = nn.Linear(768, 896)
         self.fc4 = nn.Linear(896, semantic_dim)

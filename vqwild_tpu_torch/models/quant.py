@@ -52,6 +52,7 @@ from vqwild_tpu_torch.models.fold import (
     YUV_ZERO_Y,
     fold_trunk_params,
     make_folded_trunk,
+    require_resnet_trunk,
     stem_to_yuv_s2d,
     yuv420_center_s2d,
 )
@@ -296,6 +297,7 @@ def calibrate_trunk(state_dict: Mapping[str, Any], y_u8, uv_u8, *, bn_eps: float
     tensor. Takes [B, T, H, W] / [B, T, H/2, W/2, 2] uint8 planes (numpy or
     tensors; T folded into the batch). The stem block is kernel K2; the
     blocks run conv by conv (fp32, TF32 off) so that ``_mid`` is seen."""
+    require_resnet_trunk(state_dict, "the int8 trunk's calibration")
     dev = resolve_device(device)
     if dev.type == "cuda":
         disable_tf32()
@@ -364,6 +366,7 @@ def quantize_trunk(state_dict: Mapping[str, Any], calib: Dict[str, float], *,
      "out_scale": f32[]}                               # final dequant
 
     ``int8_params`` puts it on a device."""
+    require_resnet_trunk(state_dict, "the int8 trunk")
     p = fold_trunk_params(state_dict, bn_eps=bn_eps)
     p["conv1"]["kernel"] = stem_to_yuv_s2d(p["conv1"]["kernel"])
 

@@ -91,12 +91,23 @@ class BasicBlock(nn.Module):
 
 class ResNet18F2F(nn.Module):
     """Trunk: [B, T, H, W, C] float → per-frame features [B, T, 512], fp32
-    (float64 for a float64 module)."""
+    (float64 for a float64 module).
+
+    ``build`` registers the layers on the module it is given and ``embed``
+    runs them, so that ``models.arv.ARVModel`` holds them at the top level
+    of its own state_dict, the reference checkpoint's layout."""
+
+    trunk_name = "resnet18_f2f"
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
                  stage_planes: Sequence[int] = (64, 128, 256, 512), bn_eps: float = BN_EPS,
                  bn_momentum: float = BN_MOMENTUM, dtype: torch.dtype = torch.float32):
         super().__init__()
+        ResNet18F2F.build(self, stage_sizes, stage_planes, bn_eps, bn_momentum, dtype)
+
+    def build(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
+              stage_planes: Sequence[int] = (64, 128, 256, 512), bn_eps: float = BN_EPS,
+              bn_momentum: float = BN_MOMENTUM, dtype: torch.dtype = torch.float32):
         self.stage_sizes = tuple(stage_sizes)
         self.stage_planes = tuple(stage_planes)
         self.dtype = dtype
@@ -125,6 +136,12 @@ class ResNet18F2F(nn.Module):
                 x = block(x, train, mesh)
         return x.mean(dim=(2, 3)).reshape(b, t, -1).to(torch.promote_types(self.dtype,
                                                                           torch.float32))
+
+    def embed(self, x, train: bool = False, mesh=None, generator=None):
+        """→ (frame features [B, T, 512], the clip embedding: their mean
+        over time [B, 512]). The trunk draws no random numbers."""
+        frame_embed = ResNet18F2F.forward(self, x, train=train, mesh=mesh)
+        return frame_embed, frame_embed.mean(dim=1)
 
 
 def block_convs(trunk: ResNet18F2F, frames: int, crop: int):

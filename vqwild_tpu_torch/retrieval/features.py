@@ -25,6 +25,7 @@ from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from vqwild_tpu_torch.core.device import resolve_device
 from vqwild_tpu_torch.core.logging import get_logger
@@ -41,7 +42,7 @@ from vqwild_tpu_torch.data.longvideo import (
     read_chunk_batch_yuv,
 )
 from vqwild_tpu_torch.data.schema import VideoRecord
-from vqwild_tpu_torch.models.fold import make_embed_fn
+from vqwild_tpu_torch.models.fold import make_embed_fn, require_resnet_trunk
 from vqwild_tpu_torch.models.heads import l2_normalize
 from vqwild_tpu_torch.models.resnet_f2f import BN_EPS, ResNet18F2F
 from vqwild_tpu_torch.ops.hostmem import alloc_array
@@ -55,7 +56,7 @@ from vqwild_tpu_torch.parallel.mesh import pad_to_multiple, shard_batch_arrays
 log = get_logger("retrieval.features")
 
 
-def make_feat_fn(trunk: ResNet18F2F, *, wire: str = "rgb", dtype=torch.float32,
+def make_feat_fn(trunk: nn.Module, *, wire: str = "rgb", dtype=torch.float32,
                  bn_eps: float = BN_EPS, folded: bool = True, quant: Optional[str] = None,
                  calib_path: Optional[str] = None,
                  device: Union[str, torch.device] = "cuda", mesh=None) -> Callable:
@@ -69,11 +70,13 @@ def make_feat_fn(trunk: ResNet18F2F, *, wire: str = "rgb", dtype=torch.float32,
     (fold.stem_to_yuv_s2d), which runs as kernel K2.
 
     ``folded=False`` keeps the trained module's eval graph: ``trunk`` (a
-    ``ResNet18F2F`` or an ``ARVModel``, whose weights are copied now, as the
-    JAX function captures its variables) in its own compute dtype and BN
-    epsilon, after ``ops/preprocess.normalize_clips`` or
-    ``normalize_clips_yuv420``; the per-frame embeddings are L2-normalized
-    over C. ``dtype`` and ``bn_eps`` must then be the module's.
+    ``ResNet18F2F``, a ``TimeSformer`` or an ``ARVModel`` of either, whose
+    weights are copied now, as the JAX function captures its variables) in
+    its own compute dtype and BN epsilon, after
+    ``ops/preprocess.normalize_clips`` or ``normalize_clips_yuv420``; the
+    per-frame embeddings are L2-normalized over C. ``dtype`` and, for the
+    ResNet18-F2F, ``bn_eps`` must then be the module's. The folded and int8
+    trunks are the ResNet18-F2F's alone: another trunk raises there.
 
     ``quant="int8"`` (yuv420 wire only) serves the post-training-quantized
     trunk (models/quant.py): the FIRST batch this fn sees calibrates an fp32
@@ -108,9 +111,10 @@ def make_feat_fn(trunk: ResNet18F2F, *, wire: str = "rgb", dtype=torch.float32,
                             stem_mode="yuv_s2d" if wire == "yuv420" else "conv7",
                             bn_eps=bn_eps, device=dev)
     else:
-        if dtype != trunk.dtype or bn_eps != trunk.bn1.eps:
+        eps = trunk.bn1.eps if trunk.trunk_name == ResNet18F2F.trunk_name else bn_eps
+        if dtype != trunk.dtype or bn_eps != eps:
             raise ValueError(f"folded=False runs the module as built (dtype {trunk.dtype}, "
-                             f"bn_eps {trunk.bn1.eps}); got dtype {dtype}, bn_eps {bn_eps}")
+                             f"bn_eps {eps}); got dtype {dtype}, bn_eps {bn_eps}")
         net = copy.deepcopy(trunk).to(dev).requires_grad_(False)
 
         def fwd(*arrays):
@@ -120,7 +124,7 @@ def make_feat_fn(trunk: ResNet18F2F, *, wire: str = "rgb", dtype=torch.float32,
                 (x,) = arrays
                 if x.dtype == torch.uint8:
                     x = normalize_clips(x, out_dtype=net.dtype)
-            fe = ResNet18F2F.forward(net, x, train=False)  # [B, T, C]
+            fe = net.embed(x, train=False)[0]  # [B, T, C]
             return l2_normalize(fe, axis=-1).transpose(1, 2)
 
     def feat_fn(*arrays):
@@ -161,6 +165,7 @@ def _int8_fwd(trunk, *, wire, quant, calib_path, bn_eps, device, mesh=None):
 
     # the weights as they are now, as the JAX function captures its variables
     sd = {k: v.detach().to("cpu", copy=True) for k, v in trunk.state_dict().items()}
+    require_resnet_trunk(sd, "the int8 trunk")
     cell: dict = {}
     cell_lock = threading.Lock()
 
