@@ -401,6 +401,11 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 10
 # a pass that drops a correction product and of one TF32 pass)
 CONV_TOL = {"fwd": 5e-6, "dgrad": 5e-6, "wgrad": 5e-6}
 CONV_SMALL_FRAMES = 4
+# K4 against float64, the tests' limit (tests/test_torch_linear.py CARD_TOL);
+# the TimeSformer train step of the benchmark's tsf-va-train cell: 10
+# triplets of 8 frames of 224² in ViT-B/16's widths
+LINEAR_TOL = {"fwd": 5e-6, "dgrad": 5e-6, "wgrad": 5e-6, "bias": 5e-6}
+TSF_TRIPLETS, TSF_FRAMES, TSF_CROP = 10, 8, 224
 # the training loop at the JAX package's defaults (core/config.py): 10
 # triplets a step, 8 loader threads (capped at the host's cores), va; 2
 # epochs of 12 steps, a print every 4; the validation split cut to 25 base
@@ -2582,6 +2587,187 @@ def phase_conv(dev, *, frames, crop, small_frames, triplets, train_frames):
     return out
 
 
+def linear_geometries(clips, frames, crop, patch=16, dim=768, mlp=3072):
+    """The TimeSformer trunk's linears in one forward over ``clips`` clips,
+    as {(M, K, N): [names]}: the temporal branch over each clip's N·T patch
+    tokens, the spatial branch over each frame's N + 1 tokens, the MLP over
+    the patch tokens and again over the class tokens, the patch embedding
+    over the patches."""
+    n = (crop // patch) ** 2
+    tok, rows_s = clips * n * frames, clips * frames * (n + 1)
+    out = {}
+    for name, geo in (("patch_embed", (tok, patch * patch * 3, dim)),
+                      ("temporal_attn.qkv", (tok, dim, 3 * dim)),
+                      ("temporal_attn.proj", (tok, dim, dim)), ("temporal_fc", (tok, dim, dim)),
+                      ("attn.qkv", (rows_s, dim, 3 * dim)), ("attn.proj", (rows_s, dim, dim)),
+                      ("mlp.fc1", (tok, dim, mlp)), ("mlp.fc2", (tok, mlp, dim)),
+                      ("cls.mlp.fc1", (clips, dim, mlp)), ("cls.mlp.fc2", (clips, mlp, dim))):
+        out.setdefault(geo, []).append(name)
+    return out
+
+
+def linear_work(m, k, n):
+    """Operations and fp32 bytes of each pass of a linear (each multiplies
+    the same pairs, 2·M·N·K): forward x, w, b → y; input gradient dy, w →
+    dx; weight gradient x, dy → dw, db; each read or written once."""
+    x, y, w = m * k, m * n, n * k
+    return 2.0 * m * n * k, {"fwd": 4.0 * (x + w + n + y), "dgrad": 4.0 * (y + w + x),
+                             "wgrad": 4.0 * (x + y + w + n)}
+
+
+def phase_linear(dev, *, triplets, frames, crop):
+    """K4 at every linear geometry of the TimeSformer train step (``triplets``
+    x 3 clips of ``frames`` x crop²): each pass held to float64 (LINEAR_TOL)
+    and timed against its bound (165 TFLOP/s of 3xTF32 or 3.35 TB/s, the
+    larger) and cuBLAS fp32 (``F.linear`` and the products of its
+    gradients, TF32 off: ``library_ms``). Then one fp32 va train step of the
+    trunk at those shapes, profiled: it must launch each pass once per
+    linear that has it, copy only the residual stream's frame-major
+    gradients and run no cuBLAS fp32 GEMM but the heads'; the recorder's
+    ``linear.*`` counters; a bf16 step launches none."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from vqwild_tpu_torch.core import profiling
+    from vqwild_tpu_torch.models.arv import ARVModel
+    from vqwild_tpu_torch.ops import linear as linear_ops
+    from vqwild_tpu_torch.ops.preprocess import rgb_to_yuv420_host
+    from vqwild_tpu_torch.train.step import create_train_state, make_optimizer, make_train_step
+
+    clips = 3 * triplets
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rows, failed = [], []
+    for (m, k, n), names in linear_geometries(clips, frames, crop).items():
+        x = torch.randn(m, k, generator=gen, device=dev)
+        w = torch.randn(n, k, generator=gen, device=dev) * (1.0 / k) ** 0.5
+        b = 0.1 * torch.randn(n, generator=gen, device=dev)
+        gy = torch.randn(m, n, generator=gen, device=dev)
+        x64, w64, b64 = (t.double().requires_grad_() for t in (x, w, b))
+        y64 = F.linear(x64, w64, b64)
+        want = (y64.detach(),) + torch.autograd.grad(y64, (x64, w64, b64), gy.double())
+        del x64, w64, b64, y64
+        geo = (m, n, k)
+        kern = {"fwd": lambda: linear_ops.forward_rows(x, w, b, geo),
+                "dgrad": lambda: linear_ops.input_grad_rows(gy, w, geo),
+                "wgrad": lambda: linear_ops.weight_grad(x, gy, geo, True)}
+        library = {"fwd": lambda: F.linear(x, w, b), "dgrad": lambda: gy @ w,
+                   "wgrad": lambda: (gy.t() @ x, gy.sum(0))}
+        flops, nbytes = linear_work(m, k, n)
+        row = {"phase": "linear", "linears": names, "M": m, "K": k, "N": n,
+               "gflop": flops / 1e9}
+        for pname in linear_ops.PASSES:
+            got, base = kern[pname](), library[pname]()
+            torch.cuda.synchronize()
+            if pname == "wgrad":
+                pairs = (("wgrad", got[0], base[0], want[2]), ("bias", got[1], base[1], want[3]))
+            else:
+                i = 0 if pname == "fwd" else 1
+                pairs = ((pname, got, base, want[i]),)
+            cell = {}
+            for what, g, lib, ref in pairs:
+                scale = ref.abs().max()
+                err = float((g.double() - ref).abs().max() / scale)
+                if not err <= LINEAR_TOL[what]:
+                    failed.append(f"K4 {what} {names} {geo}: relative error {err} > "
+                                  f"{LINEAR_TOL[what]}")
+                cell[f"{what}_rel_err" if what == "bias" else "rel_err"] = err
+                cell[f"{what}_library_rel_err" if what == "bias" else "library_rel_err"] = float(
+                    (lib.double() - ref).abs().max() / scale)
+            del got, base
+            b_ms, b_by = bound(nbytes[pname], 3.0 * flops, TF32_FLOPS, "operations, 3xTF32")
+            cell.update(kernel_ms=time_ms(kern[pname]), library_ms=time_ms(library[pname]),
+                        bound_ms=b_ms, bound_by=b_by)
+            cell["bound_share"] = b_ms / cell["kernel_ms"]
+            cell["tflops"] = flops / cell["kernel_ms"] / 1e9
+            row[pname] = cell
+        del want, x, w, b, gy, kern, library
+        rows.append(row)
+        emit(row)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    # a forward runs each geometry's linears once a block (the patch embedding once)
+    per_forward = {g: sum(12 if nm != "patch_embed" else 1 for nm in names)
+                   for g, names in linear_geometries(clips, frames, crop).items()}
+    per_pass = {}
+    for pname in linear_ops.PASSES:
+        calls = {(r["M"], r["K"], r["N"]): per_forward[(r["M"], r["K"], r["N"])] - (
+            1 if pname == "dgrad" and "patch_embed" in r["linears"] else 0) for r in rows}
+        per_pass[pname] = {key: sum(r[pname][key] * calls[(r["M"], r["K"], r["N"])]
+                                    for r in rows)
+                           for key in ("kernel_ms", "library_ms", "bound_ms")}
+    torch.cuda.empty_cache()
+
+    # one train step each way: K4's launches, the relayouts, cuBLAS's GEMMs
+    rng = np.random.default_rng(24)
+    frames_u8 = rng.integers(0, 256, (clips, frames, crop, crop, 3), dtype=np.uint8)
+    arrays = tuple(torch.from_numpy(a).to(dev) for a in rgb_to_yuv420_host(frames_u8))
+    labels = torch.from_numpy(rng.integers(0, TRAIN_NCLASS, clips)).to(dev)
+    steps = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        torch.manual_seed(4)
+        with dev:
+            model = ARVModel("va", nclass=TRAIN_NCLASS, feat_dim=768, dtype=dtype,
+                             trunk="timesformer_divst")
+        tx = make_optimizer(init_lr=1e-4, weight_decay=1e-5, steps_per_epoch=100,
+                            lr_decay_epoch=9)
+        state = create_train_state(model, tx, seed=1)
+        step = make_train_step(model, tx, wire="yuv420")
+        state, _ = step(state, *arrays, labels)  # warm-up: the build
+        torch.cuda.synchronize()
+        before = {p: linear_ops.launches[p].n for p in linear_ops.PASSES}
+        relaid = linear_ops.relayouts.n
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)  # the profiler can lose its first kernels
+            state, _ = step(state, *arrays, labels)
+            torch.cuda.synchronize()
+        counted = {p: linear_ops.launches[p].n - before[p] for p in linear_ops.PASSES}
+        recorded = {k: v for k, v in profiling.counters().items() if k.startswith("linear.")}
+        kernels = device_ms_by_kernel(prof)
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+        library_gemms = {k: v for k, v in kernels.items()
+                         if ("xmma_gemm_f32f32" in k or "simt_sgemm" in k or "sgemm" in k)
+                         and "linear_" not in k}
+        steps[str(dtype).split(".")[-1]] = {
+            "launches": counted, "recorder_counters": recorded,
+            "relayouts": linear_ops.relayouts.n - relaid,
+            "device_ms": sum(kernels.values()),
+            "k4_ms": sum(v for k, v in kernels.items() if "linear_" in k),
+            "library_fp32_gemm_ms": sum(library_gemms.values()),
+            "library_fp32_gemms": [[k[:90], v] for k, v in library_gemms.items()],
+            "top_kernels_ms": [[k[:90], v] for k, v in top]}
+        del model, state, step
+        torch.cuda.empty_cache()
+    fp32 = steps["float32"]
+    # 9 linears a block and the patch embedding forward; no backward for the
+    # last block's class-token MLP (it feeds only the clip embedding, which
+    # the VA loss does not read), no input gradient for the patch embedding
+    want = {"fwd": 12 * 9 + 1, "dgrad": 12 * 9 - 2, "wgrad": 12 * 9 + 1 - 2}
+    if fp32["launches"] != want or any(fp32["recorder_counters"].get(f"linear.{p}") != n
+                                       for p, n in want.items()):
+        raise AssertionError(f"an fp32 TimeSformer step launched K4 {fp32}, not {want}")
+    # the gradients of temporal_fc's and fc2's outputs (the residual stream's)
+    # arrive frame-major from the spatial branch's gather, in every block but
+    # the last one's fc2: each is made contiguous once
+    if fp32["relayouts"] != 2 * 12 - 1 or fp32["recorder_counters"].get(
+            "linear.relayout") != 2 * 12 - 1:
+        raise AssertionError(f"an fp32 TimeSformer step copied {fp32['relayouts']} inputs for "
+                             f"K4, not {2 * 12 - 1}")
+    if fp32["library_fp32_gemm_ms"] > 0.02 * fp32["device_ms"]:
+        raise AssertionError(f"an fp32 TimeSformer step ran cuBLAS fp32 GEMMs beyond the "
+                             f"heads': {fp32['library_fp32_gemms']}")
+    if any(steps["bfloat16"]["launches"].values()):
+        raise AssertionError(f"a bf16 TimeSformer step launched K4: {steps['bfloat16']}")
+    out = {"phase": "linear_summary", "card": card_line(), "clips": clips, "frames": frames,
+           "crop": crop, "per_pass_ms": per_pass,
+           "kernel_ms_all": sum(v["kernel_ms"] for v in per_pass.values()),
+           "library_ms_all": sum(v["library_ms"] for v in per_pass.values()),
+           "bound_ms_all": sum(v["bound_ms"] for v in per_pass.values()),
+           "steps": steps}
+    emit(out)
+    return out
+
+
 def phase_train(dev, *, triplets, frames, crop, warmup, timed):
     """The train step at full width for baseline, va and vasa: fp32 (TF32
     off) and bf16 over the same seeded batches, then one fp32 step on the
@@ -4549,7 +4735,7 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    secs = _build.build(["sq_l2", "stem_pool", "conv_igemm"])
+    secs = _build.build(["sq_l2", "stem_pool", "conv_igemm", "linear_gemm"])
     ptxas = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln] for n in secs}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_kernel_s": secs,
@@ -4568,6 +4754,7 @@ def main() -> int:
                         warmup=TRAIN_WARMUP, timed=TRAIN_TIMED)
     k3 = phase_conv(dev, frames=TRAIN_TRIPLETS * 3 * FRAMES, crop=CROP,
                     small_frames=CONV_SMALL_FRAMES, triplets=TRAIN_TRIPLETS, train_frames=FRAMES)
+    k4 = phase_linear(dev, triplets=TSF_TRIPLETS, frames=TSF_FRAMES, crop=TSF_CROP)
     host_launch(dev, triplets=TRAIN_TRIPLETS, frames=FRAMES, crop=CROP, warmup=3, timed=20)
     train_choices(dev, frames=TRAIN_TRIPLETS * 3 * FRAMES, crop=CROP)
     train_vs_cpu(dev, steps=3, batch=6, frames=2, crop=32)
@@ -4702,6 +4889,13 @@ def main() -> int:
          "per_pass_ms": k3["per_pass_ms"], "ms": k3["kernel_ms_all"],
          "bound_ms": k3["bound_ms_all"], "library_ms": k3["library_ms_all"],
          "shape": "the 19 block convs of a train step, forward and both gradients"},
+        {"name": "linear_gemm", "route": "cuda", "source": "vqwild_tpu_torch/csrc/linear_gemm.cu",
+         "replaces": "no TPU kernel: cuBLAS's fp32 (TF32 off) products of the TimeSformer trunk",
+         "launches_per_train_step": k4["steps"]["float32"]["launches"],
+         "relayouts_per_train_step": k4["steps"]["float32"]["relayouts"],
+         "per_pass_ms": k4["per_pass_ms"], "ms": k4["kernel_ms_all"],
+         "bound_ms": k4["bound_ms_all"], "library_ms": k4["library_ms_all"],
+         "shape": "the trunk's linears of a TimeSformer train step, forward and both gradients"},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

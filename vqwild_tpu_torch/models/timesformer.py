@@ -54,7 +54,10 @@ patches gathered in token order (a relayout), its weight [D, 3, 16, 16]
 read as [D, 16·16·3]. Attention is ``F.scaled_dot_product_attention``, on
 a card limited to the memory-efficient kernel (float32 through
 error-compensated TF32 products, CUTLASS's ``OpMultiplyAddFastF32``) and
-the math kernel: never a kernel that computes float32 in TF32 or less.
+the math kernel: never a kernel that computes float32 in TF32 or less. The
+linears and the patch product run on K4 (``ops/linear.py``: three
+error-compensated TF32 products on the tensor cores) for a CUDA float32
+input, and in ``F.linear`` for any other.
 
 The keys are the published ones, at the top level of the module that
 holds the trunk: ``cls_token``, ``pos_embed``, ``time_embed``,
@@ -86,14 +89,24 @@ import torch.nn.functional as F
 from torch import nn
 
 from vqwild_tpu_torch.core import profiling
+from vqwild_tpu_torch.ops import linear as linear_ops
 
 # vit_base_patch16_224 with divided space-time attention, 8 frames
 DIM, DEPTH, HEADS, MLP, PATCH, FRAMES, CROP = 768, 12, 12, 3072, 16, 8, 224
 DROP_PATH, LN_EPS = 0.1, 1e-6
 
 
+def _affine(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``x weightᵀ + bias``: on K4 (``ops/linear.py``) for a CUDA float32
+    input, ``F.linear`` for any other (the CPU, float64, bf16)."""
+    weight, bias = weight.to(x.dtype), bias.to(x.dtype)
+    if x.is_cuda and x.dtype == torch.float32:
+        return linear_ops.linear(x, weight, bias)
+    return F.linear(x, weight, bias)
+
+
 def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+    return _affine(x, layer.weight, layer.bias)
 
 
 def _norm(layer: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -282,7 +295,7 @@ class TimeSformer(nn.Module):
             weight = proj.weight.permute(0, 2, 3, 1).reshape(proj.weight.shape[0], -1)
             profiling.count("tsf.relayout_bytes", (patches.numel() + weight.numel())
                             * patches.element_size())
-            tok = F.linear(patches, weight.to(x.dtype), proj.bias.to(x.dtype))
+            tok = _affine(patches, weight, proj.bias)
             d = tok.shape[-1]
             tok = tok.view(b, gh * gw, t, d)
             pos = _pos_embed(self.pos_embed, gh, gw).to(x.dtype)
