@@ -184,12 +184,16 @@ class TestWrapper:
 
 
 class TestBuild:
-    def test_library_path_follows_the_source(self, tmp_path, monkeypatch):
+    @pytest.mark.parametrize("edited", ["k.cu", "k.cuh"])
+    def test_library_path_follows_the_source(self, tmp_path, monkeypatch, edited):
+        """An edited source, or an edited header of SRC_DIR that the source
+        includes, rebuilds."""
         monkeypatch.setattr(_build, "SRC_DIR", tmp_path)
-        (tmp_path / "k.cu").write_text("// one\n")
+        (tmp_path / "k.cu").write_text('#include "k.cuh"\n// one\n')
+        (tmp_path / "k.cuh").write_text("// one\n")
         first = _build.lib_path("k")
-        (tmp_path / "k.cu").write_text("// two\n")
-        assert _build.lib_path("k") != first  # an edited source rebuilds
+        (tmp_path / edited).write_text((tmp_path / edited).read_text() + "// two\n")
+        assert _build.lib_path("k") != first  # an edited source or header rebuilds
         assert first.parent == _build.BUILD_DIR and first.suffix == ".so"
 
     def test_missing_nvcc_raises(self, tmp_path, monkeypatch):

@@ -112,16 +112,17 @@ class TestDispatch:
 
     def test_each_launch_counts_its_pass_and_its_flop(self):
         """The recorder's ``linear.*`` counters (tsf_linear_roofline.train
-        reads ``linear.flop``): a launch of each pass, 2·M·N·K each."""
+        reads ``linear.flop``): a launch of each pass, counted as the
+        launchers count it, 2·M·N·K each."""
         from torch.profiler import ProfilerActivity, profile
 
         from vqwild_tpu_torch.core import profiling
 
-        geo = (30 * 1568, 2304, 768)
+        m, n, k = geo = (30 * 1568, 2304, 768)
         before = {p: linear_ops.launches[p].n for p in linear_ops.PASSES}
         with profile(activities=[ProfilerActivity.CPU]):
             for p in linear_ops.PASSES:
-                linear_ops._launched(p, geo)
+                linear_ops.launches.count(p, 2 * m * n * k)
         counters = profiling.counters()
         assert {p: counters.get(f"linear.{p}") for p in linear_ops.PASSES} == {
             "fwd": 1, "dgrad": 1, "wgrad": 1}

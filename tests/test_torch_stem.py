@@ -93,6 +93,25 @@ class TestTf32Split:
         torch.testing.assert_close(got[:4], want[:4], rtol=0, atol=0)
         torch.testing.assert_close(got[4:], want[4:], rtol=2.0 ** -11, atol=0)
 
+    def test_split_sum_is_the_three_products_in_their_order(self):
+        """``tf32.split_sum``, which every kernel's emulation takes: with
+        ``passes=3`` the products (lo·hi + hi·lo) + hi·hi bit for bit, with
+        ``passes=1`` hi·hi, and no other pass count."""
+        gen = torch.Generator().manual_seed(5)
+        a = torch.randn(24, 96, generator=gen) * 1e3
+        b = torch.randn(40, 96, generator=gen)
+
+        def fn(u, v):
+            return u @ v.T
+
+        (a_hi, a_lo), (b_hi, b_lo) = tf32.tf32_split(a), tf32.tf32_split(b)
+        want = (fn(a_lo, b_hi) + fn(a_hi, b_lo)) + fn(a_hi, b_hi)
+        assert torch.equal(tf32.split_sum(fn, a, b, passes=3), want)
+        assert torch.equal(tf32.split_sum(fn, a, b, passes=1), fn(a_hi, b_hi))
+        for passes in (0, 2, 4):
+            with pytest.raises(ValueError, match="passes must be 1 or 3"):
+                tf32.split_sum(fn, a, b, passes)
+
     @pytest.mark.parametrize("scale", [1.0, 1e3, 1e-3])
     @pytest.mark.parametrize("n,hw", [(5, 16), (4, 12)])
     def test_three_passes_match_plain(self, n, hw, scale):

@@ -280,3 +280,18 @@ def test_the_command_line_takes_the_trunk():
     assert cfg.model.trunk == "timesformer_divst" and cfg.model.feat_dim == 768
     cfg, _ = cli.parse(["--method", "va"])
     assert cfg.model.trunk == "resnet18_f2f" and cfg.model.feat_dim == 512
+
+
+def test_the_command_line_sizes_it_and_refuses_pretrained_weights():
+    """The trunk's sizes come from the run's frames and crop; a 2D
+    ResNet18's --pretrained_weights is refused by the guard that BN folding
+    and the int8 trunk use."""
+    from vqwild_tpu_torch.apps import cli
+
+    argv = ["--method", "va", "--trunk", "timesformer_divst", "--input_size", "32",
+            "--train_frame", "2"]
+    model = cli.build_arv_model(cli.parse(argv)[0], "cpu")
+    assert model.time_embed.shape == (1, 2, 768) and model.pos_embed.shape == (1, 5, 768)
+    with pytest.raises(ValueError, match="--pretrained_weights takes the ResNet18-F2F .* "
+                                         "TimeSformer"):
+        cli.build_arv_model(cli.parse(argv + ["--pretrained_weights", "r18.pth"])[0], "cpu")

@@ -71,11 +71,10 @@ from vqwild_tpu_torch.data.schema import (
     load_trimmed_db,
     load_word_embeddings,
 )
-from vqwild_tpu_torch.models.timesformer import DIM as TSF_DIM
-from vqwild_tpu_torch.models.timesformer import TimeSformer
+from vqwild_tpu_torch.models.arv import TRUNKS
+from vqwild_tpu_torch.models.fold import require_resnet_trunk
 
 log = get_logger("cli")
-TSF = TimeSformer.trunk_name
 
 # candidate roots, under the data root, for the ARV db / word-embedding
 # artifacts
@@ -145,7 +144,7 @@ def parse(argv=None):
                    help="model compute dtype; bfloat16 = mixed-precision "
                         "training (fp32 params/losses; float32 runs with "
                         "TF32 off and matches reference numerics)")
-    p.add_argument("--trunk", choices=[ModelConfig.trunk, TSF], default=ModelConfig.trunk,
+    p.add_argument("--trunk", choices=list(TRUNKS), default=ModelConfig.trunk,
                    help="the ARV trunk: the reference's ResNet18-F2F, or TimeSformer's "
                         "divided space-time ViT-B/16 (768-d embeddings; sized by "
                         "--train_frame and --input_size)")
@@ -248,7 +247,7 @@ def parse(argv=None):
         compute_dtype=args.compute_dtype,
         stem_s2d=args.stem_s2d,
         trunk=args.trunk,
-        feat_dim=TSF_DIM if args.trunk == TSF else ModelConfig.feat_dim,
+        feat_dim=TRUNKS[args.trunk].feat_dim,
     )
     train = TrainConfig(
         epochs=2 if args.debug else args.epochs,
@@ -312,14 +311,11 @@ def build_arv_model(cfg: ExperimentConfig, device="cuda"):
     inflated into its trunk (main.py:206-211)."""
     from vqwild_tpu_torch.models.arv import build_model
 
-    trunk_args = {}
-    if cfg.model.trunk == TSF:
-        trunk_args = dict(frames=cfg.data.train_frame, crop=cfg.data.input_size)
-        if cfg.train.pretrained_weights:
-            raise ValueError("--pretrained_weights inflates a 2D ResNet18 into the "
-                             "ResNet18-F2F trunk; the TimeSformer trunk takes none")
+    trunk_args = {k: getattr(cfg.data, field)
+                  for k, field in TRUNKS[cfg.model.trunk].data_sizes.items()}
     model = build_model(cfg.model, device, seed=cfg.train.manual_seed, **trunk_args)
     if cfg.train.pretrained_weights:
+        require_resnet_trunk(model.state_dict(), "--pretrained_weights")
         from vqwild_tpu_torch.models.convert import _numpy_safe_globals
         from vqwild_tpu_torch.models.torch_import import inflate_resnet18_2d, merge_state_dict
 
@@ -471,7 +467,7 @@ def _feat_fn(cfg, model, device, calib_path: Optional[str] = None, mesh=None):
     from vqwild_tpu_torch.retrieval.features import make_feat_fn
 
     return make_feat_fn(model, wire=cfg.eval.wire, dtype=getattr(torch, cfg.model.compute_dtype),
-                        bn_eps=cfg.model.bn_eps, folded=cfg.model.trunk != TSF,
+                        bn_eps=cfg.model.bn_eps, folded=TRUNKS[cfg.model.trunk].foldable,
                         quant=cfg.eval.trunk_quant, calib_path=calib_path, device=device,
                         mesh=mesh)
 

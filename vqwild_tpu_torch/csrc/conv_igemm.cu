@@ -71,38 +71,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma_tf32.cuh"
+
 namespace {
 
 constexpr int BK = 32;  // K depth of a pipeline stage
 constexpr int STAGES = 3;
 constexpr int MAX_TAPS = 9;  // up to 3 x 3
 constexpr int MAX_SUB = 4;   // parity classes of a stride-2 input gradient
-constexpr int MAX_DEV = 16;
-
-__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
-
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  uint32_t u;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(u) : "f"(v));
-  return u;
-}
-
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(v);
-  lo = tf32_rna(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const float* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
 
 // 16 bytes from global to shared memory, or 16 zero bytes where !valid
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  const uint32_t d = smem_u32(dst);
   const int nbytes = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(nbytes)
                : "memory");
@@ -113,81 +93,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// ---------------------------------------------------------------------------
-// wgmma and its fences
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// keep a register's value where it is until here (a wgmma may still read it)
-__device__ __forceinline__ void keep(float& r) { asm volatile("" : "+f"(r)::"memory"); }
-__device__ __forceinline__ void keep(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
-
-// a K-major, 128-byte-swizzled tile: rows of 128 bytes, 8-row groups 1024
-// bytes apart
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
-  return (uint64_t)((saddr >> 4) & 0x3FFF) | ((uint64_t)1 << 16) | ((uint64_t)64 << 32) |
-         ((uint64_t)1 << 62);
-}
-
-// d (+)= a * b for one m64nNk8 TF32 step: a from registers, b through a
-// descriptor; scale_d = 0 starts d afresh.
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-        "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_t(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc,
-                                        int scale_d) {
-  static_assert(N == 128 || N == 64, "wgmma widths built here");
-  if constexpr (N == 128) wgmma_n128(d, a, desc, scale_d);
-  else wgmma_n64(d, a, desc, scale_d);
 }
 
 // ---------------------------------------------------------------------------
@@ -233,7 +138,7 @@ template <int BN, int MW>
 __global__ void __launch_bounds__(256, 1) fprop_kernel(const FpropArgs args) {
   using C = FpropCfg<BN, MW>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t raw = smem_u32(smem_raw);
   const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
   unsigned char* base = smem_raw + pad;
   unsigned char* sBh = base;
@@ -354,7 +259,7 @@ __global__ void __launch_bounds__(256, 1) fprop_kernel(const FpropArgs args) {
 #pragma unroll
       for (int ks = 0; ks < BK / 8; ++ks) {
         uint32_t r[4];
-        ldsm4(r, a + w * 64 * C::LDA + ks * 8);
+        ldsm4(r, smem_u32(a + w * 64 * C::LDA + ks * 8));
 #pragma unroll
         for (int q = 0; q < 4; ++q) split(__uint_as_float(r[q]), ahi[w][ks][q], alo[w][ks][q]);
       }
@@ -475,7 +380,7 @@ template <int BM, int BN, int WM>
 __global__ void __launch_bounds__(256, WM == 1 ? 2 : 1) wgrad_kernel(const WgradArgs args) {
   using C = WgradCfg<BM, BN, WM>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t raw = smem_u32(smem_raw);
   const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
   unsigned char* base = smem_raw + pad;
   unsigned char* cHi = base;
@@ -649,42 +554,7 @@ __global__ void wgrad_reduce(const float* __restrict__ ws, float* __restrict__ d
 }
 
 // ---------------------------------------------------------------------------
-// Host side: per-device facts, read once.
-
-struct DevInfo {
-  int sms = 0;
-  bool ready = false;
-};
-DevInfo g_dev[MAX_DEV];
-
-int device_info(int* dev, int* sms) {
-  cudaError_t err = cudaGetDevice(dev);
-  if (err != cudaSuccess) return (int)err;
-  if (*dev < 0 || *dev >= MAX_DEV) return (int)cudaErrorInvalidDevice;
-  DevInfo& d = g_dev[*dev];
-  if (!d.ready) {
-    err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, *dev);
-    if (err != cudaSuccess) return (int)err;
-    d.ready = true;
-  }
-  *sms = d.sms;
-  return 0;
-}
-
-// A kernel's dynamic shared memory set once per device, and its resident
-// blocks per SM.
-template <typename K>
-int configure(K kernel, int dev, size_t smem, int threads, bool* done, int* per_sm) {
-  if (!done[dev]) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm[dev], kernel, threads, smem);
-    if (err != cudaSuccess) return (int)err;
-    done[dev] = true;
-  }
-  return 0;
-}
+// Host side (the per-device facts are wgmma_tf32.cuh's).
 
 template <int BN, int MW>
 int launch_fprop(const FpropArgs& a, int mmax, cudaStream_t stream, int dev) {

@@ -38,6 +38,8 @@ from vqwild_tpu_torch.models.resnet_f2f import BN_EPS, BN_MOMENTUM, ResNet18F2F
 from vqwild_tpu_torch.models.timesformer import TimeSformer
 
 METHODS = ("baseline", "va", "vasa")
+# a trunk is its class (``trunk_name``, ``feat_dim``, ``data_sizes``,
+# ``foldable``, one ``build`` signature, ``embed``) and one entry here
 TRUNKS = {cls.trunk_name: cls for cls in (ResNet18F2F, TimeSformer)}
 
 
@@ -83,11 +85,8 @@ class ARVModel(nn.Module):
             raise ValueError(f"unknown trunk {trunk!r} ({'|'.join(TRUNKS)})")
         super().__init__()
         self.trunk_name = trunk
-        if trunk == ResNet18F2F.trunk_name:
-            ResNet18F2F.build(self, bn_eps=bn_eps, bn_momentum=bn_momentum, dtype=dtype,
-                              **(trunk_args or {}))
-        else:
-            TimeSformer.build(self, feat_dim, dtype=dtype, **(trunk_args or {}))
+        TRUNKS[trunk].build(self, feat_dim, bn_eps=bn_eps, bn_momentum=bn_momentum, dtype=dtype,
+                            **(trunk_args or {}))
         self.hparams = dict(method=method, nclass=nclass, feat_dim=feat_dim, dropout=dropout,
                             nl_dropout=nl_dropout, temperature=temperature,
                             moving_average=moving_average, semantic_dim=semantic_dim,

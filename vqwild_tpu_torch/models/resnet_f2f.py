@@ -98,16 +98,21 @@ class ResNet18F2F(nn.Module):
     of its own state_dict, the reference checkpoint's layout."""
 
     trunk_name = "resnet18_f2f"
+    feat_dim = 512  # the embeddings' width, ModelConfig.feat_dim
+    data_sizes = {}  # build's sizes taken from a run's DataConfig: none
+    foldable = True  # BN folding (fold.py) and the int8 trunk (quant.py) take it
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
                  stage_planes: Sequence[int] = (64, 128, 256, 512), bn_eps: float = BN_EPS,
                  bn_momentum: float = BN_MOMENTUM, dtype: torch.dtype = torch.float32):
         super().__init__()
-        ResNet18F2F.build(self, stage_sizes, stage_planes, bn_eps, bn_momentum, dtype)
+        ResNet18F2F.build(self, stage_sizes=stage_sizes, stage_planes=stage_planes,
+                          bn_eps=bn_eps, bn_momentum=bn_momentum, dtype=dtype)
 
-    def build(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
+    def build(self, feat_dim: int = feat_dim, *, stage_sizes: Sequence[int] = (2, 2, 2, 2),
               stage_planes: Sequence[int] = (64, 128, 256, 512), bn_eps: float = BN_EPS,
               bn_momentum: float = BN_MOMENTUM, dtype: torch.dtype = torch.float32):
+        """The layers on ``self`` (``feat_dim`` unread: the last stage's planes)."""
         self.stage_sizes = tuple(stage_sizes)
         self.stage_planes = tuple(stage_planes)
         self.dtype = dtype

@@ -247,6 +247,9 @@ class TimeSformer(nn.Module):
     ``models.arv.ARVModel`` holds them at its top level."""
 
     trunk_name = "timesformer_divst"
+    feat_dim = DIM  # the embeddings' width, ModelConfig.feat_dim
+    data_sizes = {"frames": "train_frame", "crop": "input_size"}  # from a run's DataConfig
+    foldable = False  # no BatchNorm to fold, no int8 version
 
     def __init__(self, dim: int = DIM, **kwargs):
         super().__init__()
@@ -255,7 +258,9 @@ class TimeSformer(nn.Module):
     def build(self, dim: int = DIM, depth: int = DEPTH, heads: int = HEADS, mlp: int = MLP,
               patch: int = PATCH, frames: int = FRAMES, crop: int = CROP,
               drop_path: float = DROP_PATH, ln_eps: float = LN_EPS,
-              dtype: torch.dtype = torch.float32):
+              dtype: torch.dtype = torch.float32, bn_eps: Optional[float] = None,
+              bn_momentum: Optional[float] = None):
+        """The layers on ``self`` (``bn_eps``, ``bn_momentum`` unread: no BatchNorm)."""
         if dim % heads or crop % patch:
             raise ValueError(f"width {dim} over {heads} heads, crop {crop} in patches of {patch}")
         self.dtype = dtype

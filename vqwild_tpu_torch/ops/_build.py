@@ -1,24 +1,36 @@
-"""Build and bind the port's CUDA kernels.
+"""Build, bind, place and count the port's CUDA kernels: the seam that
+each hand-written kernel's wrapper (``distance``, ``stem_pool``, ``conv``,
+``linear``) plugs into.
 
 Each ``csrc/<name>.cu`` holds one kernel behind a plain ``extern "C"``
 launcher. It is compiled with nvcc for ``sm_90a`` into
 ``vqwild_tpu_torch/_build/<name>-<hash>.so`` at first use (the hash covers
-the source and the flags, so an edited source rebuilds) and loaded with
-ctypes. Nothing here runs at import time: the CPU-only test machine has no
-nvcc and imports every module.
+the source, the headers of ``csrc/`` it includes and the flags, so an
+edited source or header rebuilds) and loaded with ctypes (``bind``).
+``on`` and ``stream`` place a launch, ``workspace`` asks a launcher's plan
+for its scratch, and ``OpCounters`` counts launches. Nothing here runs at
+import time: the CPU-only test machine has no nvcc and imports every
+module.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Mapping, Sequence
+
+import torch
+
+from vqwild_tpu_torch.core import profiling
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -44,10 +56,16 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)  # a header of SRC_DIR
+
+
 def lib_path(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{tag}.so"
+    h = hashlib.sha256(src)
+    for header in _INCLUDE.findall(src):
+        h.update(b"\0" + (SRC_DIR / header.decode()).read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):
@@ -94,8 +112,10 @@ def build_log(name: str) -> str:
     return p.read_text() if p.exists() else ""
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+def bind(name: str, signatures: Mapping[str, Sequence]) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use, with
+    each exported symbol of ``signatures`` typed by its ``(restype,
+    *argtypes)``."""
     lib = _libs.get(name)
     if lib is None:
         build([name])
@@ -103,6 +123,9 @@ def load(name: str) -> ctypes.CDLL:
             lib = _libs.get(name)
             if lib is None:
                 lib = ctypes.CDLL(str(lib_path(name)))
+                for symbol, (restype, *argtypes) in signatures.items():
+                    fn = getattr(lib, symbol)
+                    fn.restype, fn.argtypes = restype, argtypes
                 _libs[name] = lib
     return lib
 
@@ -111,3 +134,52 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launcher."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {rc}")
+
+
+@functools.lru_cache(maxsize=1024)
+def workspace(name: str, symbol: str, device_index: int, geo) -> int:
+    """Floats of scratch that the plan ``symbol`` of the bound library
+    ``name`` asks for ``geo`` on the current device, ``device_index``
+    (asked once for each); a negative answer is its cudaError_t."""
+    n = int(getattr(_libs[name], symbol)(*geo))
+    if n < 0:
+        raise RuntimeError(f"{symbol}: the plan failed with cudaError_t {-n}")
+    return n
+
+
+def on(dev: torch.device):
+    """``dev`` made current for the launchers, where it is not already."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def stream(dev: torch.device) -> int:
+    """The current stream of ``dev``, as the launchers take it."""
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+class OpCounters(dict):
+    """An op's always-on counts, a ``profiling.Counter`` for each of its
+    events (``self[event].n``; ``n`` and ``reset`` over all of them).
+    ``count`` bumps one and, from the same call while the recorder is on,
+    the recorder's counter ``<op>.<event>`` and, where a FLOP count is
+    given, ``<op>.flop`` (core/profiling.py)."""
+
+    def __init__(self, op: str, events: Sequence[str]):
+        super().__init__((e, profiling.Counter()) for e in events)
+        self.op = op
+
+    @property
+    def n(self) -> int:
+        return sum(c.n for c in self.values())
+
+    def reset(self) -> None:
+        for c in self.values():
+            c.reset()
+
+    def count(self, event: str, flop: int = 0) -> None:
+        self[event].add()
+        profiling.count(f"{self.op}.{event}")
+        if flop:
+            profiling.count(f"{self.op}.flop", flop)

@@ -18,14 +18,14 @@ layout is made channels_last once (``relayouts`` counts them).
 ``conv_tf32_emulated`` repeats the kernels' split arithmetic in plain
 PyTorch, in all three passes, for the tests.
 
-Launches are counted per pass in ``launches`` (always) and, while the
-recorder is on, as the counters ``conv.fwd``, ``conv.dgrad``,
-``conv.wgrad`` and ``conv.relayout`` (core/profiling.py).
+Launches are counted per pass in ``launches`` and relayouts in
+``relayouts`` (always) and, from the same call while the recorder is on,
+as the counters ``conv.fwd``, ``conv.dgrad``, ``conv.wgrad`` and
+``conv.relayout`` (``_build.OpCounters``).
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 from typing import Tuple
@@ -34,13 +34,12 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from vqwild_tpu_torch.core import profiling
 from vqwild_tpu_torch.ops import _build
-from vqwild_tpu_torch.ops.tf32 import tf32_split
+from vqwild_tpu_torch.ops.tf32 import split_sum
 
 PASSES = ("fwd", "dgrad", "wgrad")
-launches = {p: profiling.Counter() for p in PASSES}  # launches of each pass
-relayouts = profiling.Counter()  # inputs and gradients made channels_last
+launches = _build.OpCounters("conv", PASSES)  # launches of each pass
+relayouts = _build.OpCounters("conv", ("relayout",))  # inputs and gradients made channels_last
 
 CHANNEL_MULTIPLE = 32  # the kernels' K tile: channels come in whole tiles
 MAX_KERNEL = 3
@@ -58,26 +57,15 @@ def conv2d_plain(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     return F.conv2d(x, _w4(w).to(x.dtype), stride=stride, padding=padding)
 
 
-def _split_sum(fn, a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
-    """``fn(a, b)`` bilinear, with a and b split into ``hi = tf32(v)`` and
-    ``lo = tf32(v - hi)``: ``fn(a_lo, b_hi) + fn(a_hi, b_lo) + fn(a_hi, b_hi)``
-    (``passes=1``: ``fn(a_hi, b_hi)``, plain TF32)."""
-    (a_hi, a_lo), (b_hi, b_lo) = tf32_split(a), tf32_split(b)
-    y = fn(a_hi, b_hi)
-    if passes == 3:
-        y = (fn(a_lo, b_hi) + fn(a_hi, b_lo)) + y
-    return y
-
-
 class _Emulated(torch.autograd.Function):
     """The kernels' arithmetic on fp32 tensors: each pass a three-way split
-    sum (``_split_sum``) of the plain pass."""
+    sum (``tf32.split_sum``) of the plain pass."""
 
     @staticmethod
     def forward(ctx, x, w, stride, padding, passes):
         ctx.save_for_backward(x, w)
         ctx.conf = (stride, padding, passes)
-        return _split_sum(lambda a, b: F.conv2d(a, b, stride=stride, padding=padding),
+        return split_sum(lambda a, b: F.conv2d(a, b, stride=stride, padding=padding),
                           x, _w4(w), passes)
 
     @staticmethod
@@ -86,9 +74,9 @@ class _Emulated(torch.autograd.Function):
         x, w = ctx.saved_tensors
         stride, padding, passes = ctx.conf
         w4 = _w4(w)
-        dx = _split_sum(lambda a, b: torch.nn.grad.conv2d_input(
+        dx = split_sum(lambda a, b: torch.nn.grad.conv2d_input(
             x.shape, b, a, stride=stride, padding=padding), gy, w4, passes)
-        dw = _split_sum(lambda a, b: torch.nn.grad.conv2d_weight(
+        dw = split_sum(lambda a, b: torch.nn.grad.conv2d_weight(
             b, w4.shape, a, stride=stride, padding=padding), gy, x, passes)
         return dx, dw.reshape(w.shape), None, None, None
 
@@ -101,8 +89,6 @@ def conv_tf32_emulated(x: torch.Tensor, w: torch.Tensor, stride: int = 1, paddin
     product exact and the sums in fp32. ``passes=1`` keeps only ``hi*hi``,
     plain TF32. Nothing on the training path calls this; the tests hold the
     split's accuracy with it."""
-    if passes not in (1, 3):
-        raise ValueError(f"passes must be 1 or 3, got {passes}")
     return _Emulated.apply(x.float(), w.float(), stride, padding, passes)
 
 
@@ -152,43 +138,25 @@ def takes(w_shape, stride: int, padding: int) -> bool:
     return True
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_LAUNCH = (_I,) + (_P,) * 4 + (_I,) * 8 + (_P,)  # 4 pointers, geo, stream
+_SIGNATURES = {"conv_fwd_launch": _LAUNCH, "conv_dgrad_launch": _LAUNCH,
+               "conv_wgrad_launch": _LAUNCH,
+               # floats of scratch: the split count x the weight's size
+               "conv_wgrad_workspace": (ctypes.c_long,) + (_I,) * 8}
+
+
 def _lib():
-    lib = _build.load("conv_igemm")
-    if lib.conv_fwd_launch.argtypes is None:
-        ptrs4 = [ctypes.c_void_p] * 4
-        geo = [ctypes.c_int] * 8
-        for name in ("conv_fwd_launch", "conv_dgrad_launch", "conv_wgrad_launch"):
-            fn = getattr(lib, name)
-            fn.argtypes = ptrs4 + geo + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.conv_wgrad_workspace.argtypes = geo
-        lib.conv_wgrad_workspace.restype = ctypes.c_long
-    return lib
-
-
-@functools.lru_cache(maxsize=1024)
-def _wgrad_workspace(device_index: int, geo) -> int:
-    """Floats of scratch the weight gradient needs (its split count x the
-    weight's size) on the current device, ``device_index``, for ``geo``."""
-    n = int(_lib().conv_wgrad_workspace(*geo))
-    if n < 0:
-        raise RuntimeError(f"conv2d: weight-gradient plan failed with cudaError_t {-n}")
-    return n
+    return _build.bind("conv_igemm", _SIGNATURES)
 
 
 def _nhwc(t: torch.Tensor) -> torch.Tensor:
     """The NHWC storage of an NCHW tensor, made channels_last first if it
     is not (counted)."""
     if not t.is_contiguous(memory_format=torch.channels_last):
-        relayouts.add()
-        profiling.count("conv.relayout")
+        relayouts.count("relayout")
         t = t.contiguous(memory_format=torch.channels_last)
     return t.permute(0, 2, 3, 1)
-
-
-def _launched(name: str) -> None:
-    launches[name].add()
-    profiling.count(f"conv.{name}")
 
 
 def forward_nhwc(xh: torch.Tensor, w: torch.Tensor, geo) -> torch.Tensor:
@@ -199,10 +167,10 @@ def forward_nhwc(xh: torch.Tensor, w: torch.Tensor, geo) -> torch.Tensor:
     p, q = out_size(h, wd, r, stride, padding)
     y = torch.empty((n, p, q, k), dtype=xh.dtype, device=xh.device)
     wbuf = torch.empty(2 * w.numel(), dtype=xh.dtype, device=xh.device)
-    stream = torch.cuda.current_stream(xh.device).cuda_stream
     _build.check(_lib().conv_fwd_launch(xh.data_ptr(), w.data_ptr(), y.data_ptr(),
-                                        wbuf.data_ptr(), *geo, stream), "conv2d forward")
-    _launched("fwd")
+                                        wbuf.data_ptr(), *geo, _build.stream(xh.device)),
+                 "conv2d forward")
+    launches.count("fwd")
     return y
 
 
@@ -211,33 +179,25 @@ def input_grad_nhwc(gyh: torch.Tensor, w: torch.Tensor, geo) -> torch.Tensor:
     n, h, wd, c = geo[:4]
     dx = torch.empty((n, h, wd, c), dtype=gyh.dtype, device=gyh.device)
     wbuf = torch.empty(2 * w.numel(), dtype=gyh.dtype, device=gyh.device)
-    stream = torch.cuda.current_stream(gyh.device).cuda_stream
     _build.check(_lib().conv_dgrad_launch(gyh.data_ptr(), w.data_ptr(), dx.data_ptr(),
-                                          wbuf.data_ptr(), *geo, stream),
+                                          wbuf.data_ptr(), *geo, _build.stream(gyh.device)),
                  "conv2d input gradient")
-    _launched("dgrad")
+    launches.count("dgrad")
     return dx
 
 
 def weight_grad(xh: torch.Tensor, gyh: torch.Tensor, w: torch.Tensor, geo) -> torch.Tensor:
     """The weight-gradient kernels (split sums, then their ordered
     reduction): xh [N,H,W,C], gyh [N,P,Q,K] NHWC → dw, shaped as w."""
+    lib = _lib()
     dw = torch.empty_like(w)
-    ws = torch.empty(_wgrad_workspace(gyh.device.index, geo), dtype=gyh.dtype,
-                     device=gyh.device)
-    stream = torch.cuda.current_stream(gyh.device).cuda_stream
-    _build.check(_lib().conv_wgrad_launch(xh.data_ptr(), gyh.data_ptr(), dw.data_ptr(),
-                                          ws.data_ptr(), *geo, stream),
+    ws = torch.empty(_build.workspace("conv_igemm", "conv_wgrad_workspace", gyh.device.index,
+                                      geo), dtype=gyh.dtype, device=gyh.device)
+    _build.check(lib.conv_wgrad_launch(xh.data_ptr(), gyh.data_ptr(), dw.data_ptr(),
+                                       ws.data_ptr(), *geo, _build.stream(gyh.device)),
                  "conv2d weight gradient")
-    _launched("wgrad")
+    launches.count("wgrad")
     return dw
-
-
-def _on(dev: torch.device):
-    """``dev`` made current for the launchers, where it is not already."""
-    if dev.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(dev)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -251,7 +211,7 @@ class _Conv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, geo):
         xh = _nhwc(x)
-        with _on(x.device):
+        with _build.on(x.device):
             y = forward_nhwc(xh, w, geo)
         ctx.save_for_backward(xh, w)
         ctx.geo = geo
@@ -263,7 +223,7 @@ class _Conv(torch.autograd.Function):
         xh, w = ctx.saved_tensors
         gyh = _nhwc(gy)
         dx = dw = None
-        with _on(gy.device):
+        with _build.on(gy.device):
             if ctx.needs_input_grad[0]:
                 dx = input_grad_nhwc(gyh, w, ctx.geo).permute(0, 3, 1, 2)
             if ctx.needs_input_grad[1]:

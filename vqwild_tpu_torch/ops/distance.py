@@ -25,11 +25,10 @@ import ctypes
 
 import torch
 
-from vqwild_tpu_torch.core import profiling
 from vqwild_tpu_torch.ops import _build
-from vqwild_tpu_torch.ops.tf32 import tf32_split
+from vqwild_tpu_torch.ops.tf32 import split_sum
 
-launches = profiling.Counter()  # launches of the kernel
+launches = _build.OpCounters("distance", ("fwd",))  # launches of the kernel
 
 
 def pairwise_sq_l2(q: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -51,27 +50,21 @@ def pairwise_sq_l2_tf32_emulated(q: torch.Tensor, g: torch.Tensor,
     fp32; the norms come from the unsplit values. ``passes=1`` keeps only
     ``q_hi·g_hi``, plain TF32. Nothing on the serving path calls this; the
     tests hold the split's accuracy and its tie behaviour with it."""
-    if passes not in (1, 3):
-        raise ValueError(f"passes must be 1 or 3, got {passes}")
     q = q.float()
     g = g.float()
-    (q_hi, q_lo), (g_hi, g_lo) = tf32_split(q), tf32_split(g)
-    cross = q_hi @ g_hi.T
-    if passes == 3:
-        cross = (q_lo @ g_hi.T + q_hi @ g_lo.T) + cross
+    cross = split_sum(lambda a, b: a @ b.T, q, g, passes)
     q2 = (q * q).sum(dim=-1, keepdim=True)
     g2 = (g * g).sum(dim=-1)[None, :]
     return torch.clamp_min(q2 + g2 - 2.0 * cross, 0.0)
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"sq_l2_launch": (_I, _P, _P, _P, _I, _I, _I, _P),
+               "sq_l2_plan": (_I, _I, _I, _I, ctypes.POINTER(_I))}
+
+
 def _lib():
-    lib = _build.load("sq_l2")
-    if lib.sq_l2_launch.argtypes is None:
-        lib.sq_l2_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        lib.sq_l2_launch.restype = ctypes.c_int
-        lib.sq_l2_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-        lib.sq_l2_plan.restype = ctypes.c_int
-    return lib
+    return _build.bind("sq_l2", _SIGNATURES)
 
 
 def launch_plan(nq: int, ng: int, d: int) -> dict:
@@ -105,11 +98,10 @@ def sq_l2(q: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if nq == 0 or ng == 0:
         return out
     fn = _lib().sq_l2_launch
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), g.data_ptr(), out.data_ptr(), nq, ng, d, stream)
+    with _build.on(q.device):
+        rc = fn(q.data_ptr(), g.data_ptr(), out.data_ptr(), nq, ng, d, _build.stream(q.device))
     _build.check(rc, "sq_l2")
-    launches.add()
+    launches.count("fwd")
     return out
 
 

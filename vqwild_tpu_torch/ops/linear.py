@@ -12,35 +12,34 @@ products to XLA); the CUDA source and its design note are
 ``torch.autograd.Function`` whose forward and both gradients are kernel
 launches; the bias gradient comes with the weight gradient) and runs the
 plain PyTorch version, ``linear_plain`` (``F.linear`` and its autograd), on
-a CPU tensor. The kernels read x's rows as they lie: an input or a gradient
-that is not contiguous (or not 16-byte aligned) is copied once
-(``relayouts`` counts them). ``linear_tf32_emulated`` repeats the kernels'
-split arithmetic in plain PyTorch, in all three passes, for the tests.
+a CPU tensor. The kernels read x's rows as they lie: an input, a gradient,
+a weight or a bias that is not contiguous (or not 16-byte aligned) is
+copied once (``relayouts`` counts them). ``linear_tf32_emulated`` repeats
+the kernels' split arithmetic in plain PyTorch, in all three passes, for
+the tests.
 
-Launches are counted per pass in ``launches`` (always) and, while the
-recorder is on, as the counters ``linear.fwd``, ``linear.dgrad``,
-``linear.wgrad``, ``linear.relayout`` and ``linear.flop`` (2·M·N·K of each
-launch, from the shapes launched) (core/profiling.py).
+Launches are counted per pass in ``launches`` and copies in
+``relayouts`` (always) and, from the same call while the recorder is on,
+as the counters ``linear.fwd``, ``linear.dgrad``, ``linear.wgrad``,
+``linear.relayout`` and ``linear.flop`` (2·M·N·K of each launch, from the
+shapes launched) (``_build.OpCounters``).
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from vqwild_tpu_torch.core import profiling
 from vqwild_tpu_torch.ops import _build
-from vqwild_tpu_torch.ops.tf32 import tf32_split
+from vqwild_tpu_torch.ops.tf32 import split_sum
 
 PASSES = ("fwd", "dgrad", "wgrad")
-launches = {p: profiling.Counter() for p in PASSES}  # launches of each pass
-relayouts = profiling.Counter()  # inputs and gradients copied to contiguous rows
+launches = _build.OpCounters("linear", PASSES)  # launches of each pass
+relayouts = _build.OpCounters("linear", ("relayout",))  # operands copied to aligned rows
 
 WIDTH_MULTIPLE = 32  # the kernels' K tile: K and N come in whole tiles
 
@@ -51,27 +50,16 @@ def linear_plain(x: torch.Tensor, weight: torch.Tensor,
     return F.linear(x, weight, bias)
 
 
-def _split_sum(fn, a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
-    """``fn(a, b)`` bilinear, with a and b split into ``hi = tf32(v)`` and
-    ``lo = tf32(v - hi)``: ``fn(a_lo, b_hi) + fn(a_hi, b_lo) + fn(a_hi, b_hi)``
-    (``passes=1``: ``fn(a_hi, b_hi)``, plain TF32)."""
-    (a_hi, a_lo), (b_hi, b_lo) = tf32_split(a), tf32_split(b)
-    y = fn(a_hi, b_hi)
-    if passes == 3:
-        y = (fn(a_lo, b_hi) + fn(a_hi, b_lo)) + y
-    return y
-
-
 class _Emulated(torch.autograd.Function):
     """The kernels' arithmetic on fp32 tensors: each pass a three-way split
-    sum (``_split_sum``) of the plain pass; the bias and its gradient plain."""
+    sum (``tf32.split_sum``) of the plain pass; the bias and its gradient plain."""
 
     @staticmethod
     def forward(ctx, x, w, b, passes):
         ctx.save_for_backward(x, w)
         ctx.passes = passes
         ctx.has_bias = b is not None
-        y = _split_sum(lambda u, v: u @ v.t(), x.reshape(-1, x.shape[-1]), w, passes)
+        y = split_sum(lambda u, v: u @ v.t(), x.reshape(-1, x.shape[-1]), w, passes)
         if b is not None:
             y = y + b
         return y.view(*x.shape[:-1], w.shape[0])
@@ -82,8 +70,8 @@ class _Emulated(torch.autograd.Function):
         x, w = ctx.saved_tensors
         x2 = x.reshape(-1, x.shape[-1])
         g2 = gy.reshape(-1, w.shape[0])
-        dx = _split_sum(lambda u, v: u @ v, g2, w, ctx.passes).view(x.shape)
-        dw = _split_sum(lambda u, v: u.t() @ v, g2, x2, ctx.passes)
+        dx = split_sum(lambda u, v: u @ v, g2, w, ctx.passes).view(x.shape)
+        dw = split_sum(lambda u, v: u.t() @ v, g2, x2, ctx.passes)
         db = g2.sum(0) if ctx.has_bias else None
         return dx, dw, db, None
 
@@ -96,8 +84,6 @@ def linear_tf32_emulated(x: torch.Tensor, weight: torch.Tensor,
     each product exact and the sums in fp32. ``passes=1`` keeps only
     ``hi*hi``, plain TF32. Nothing on the training path calls this; the tests
     hold the split's accuracy with it."""
-    if passes not in (1, 3):
-        raise ValueError(f"passes must be 1 or 3, got {passes}")
     return _Emulated.apply(x.float(), weight.float(), None if bias is None else bias.float(),
                            passes)
 
@@ -125,50 +111,25 @@ def geometry(x_shape, w_shape, b_shape=None) -> Tuple[int, int, int]:
     return m, n, k
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"linear_fwd_launch": (_I,) + (_P,) * 5 + (_I,) * 3 + (_P,),
+               "linear_dgrad_launch": (_I,) + (_P,) * 4 + (_I,) * 3 + (_P,),
+               "linear_wgrad_launch": (_I,) + (_P,) * 5 + (_I,) * 3 + (_P,),
+               # floats of scratch: the split count x the weight's and the bias's size
+               "linear_wgrad_workspace": (ctypes.c_long,) + (_I,) * 3}
+
+
 def _lib():
-    lib = _build.load("linear_gemm")
-    if lib.linear_fwd_launch.argtypes is None:
-        ptr, i = ctypes.c_void_p, ctypes.c_int
-        lib.linear_fwd_launch.argtypes = [ptr] * 5 + [i] * 3 + [ptr]
-        lib.linear_dgrad_launch.argtypes = [ptr] * 4 + [i] * 3 + [ptr]
-        lib.linear_wgrad_launch.argtypes = [ptr] * 5 + [i] * 3 + [ptr]
-        for name in ("linear_fwd_launch", "linear_dgrad_launch", "linear_wgrad_launch"):
-            getattr(lib, name).restype = ctypes.c_int
-        lib.linear_wgrad_workspace.argtypes = [i] * 3
-        lib.linear_wgrad_workspace.restype = ctypes.c_long
-    return lib
+    return _build.bind("linear_gemm", _SIGNATURES)
 
 
-@functools.lru_cache(maxsize=1024)
-def _wgrad_workspace(device_index: int, geo) -> int:
-    """Floats of scratch the weight gradient needs (its split count x the
-    weight's and the bias's size) on the current device, ``device_index``,
-    for ``geo`` = (M, N, K)."""
-    n = int(_lib().linear_wgrad_workspace(*geo))
-    if n < 0:
-        raise RuntimeError(f"linear: weight-gradient plan failed with cudaError_t {-n}")
-    return n
-
-
-def _rows(t: torch.Tensor, width: int) -> torch.Tensor:
-    """t as contiguous rows [M, width], copied first if it is not
-    contiguous or not 16-byte aligned (counted)."""
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, copied first if it is not contiguous or not 16-byte aligned
+    (counted)."""
     if not t.is_contiguous() or t.data_ptr() % 16:
-        relayouts.add()
-        profiling.count("linear.relayout")
+        relayouts.count("relayout")
         t = t.contiguous() if not t.is_contiguous() else t.clone()
-    return t.view(-1, width)
-
-
-def _launched(name: str, geo) -> None:
-    m, n, k = geo
-    launches[name].add()
-    profiling.count(f"linear.{name}")
-    profiling.count("linear.flop", 2 * m * n * k)
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return t
 
 
 def forward_rows(x2: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], geo) -> torch.Tensor:
@@ -179,9 +140,9 @@ def forward_rows(x2: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], g
     wbuf = torch.empty(2 * w.numel(), dtype=x2.dtype, device=x2.device)
     _build.check(_lib().linear_fwd_launch(x2.data_ptr(), w.data_ptr(),
                                           None if b is None else b.data_ptr(), y.data_ptr(),
-                                          wbuf.data_ptr(), m, n, k, _stream(x2)),
+                                          wbuf.data_ptr(), m, n, k, _build.stream(x2.device)),
                  "linear forward")
-    _launched("fwd", geo)
+    launches.count("fwd", 2 * m * n * k)
     return y
 
 
@@ -191,9 +152,9 @@ def input_grad_rows(g2: torch.Tensor, w: torch.Tensor, geo) -> torch.Tensor:
     dx = torch.empty((m, k), dtype=g2.dtype, device=g2.device)
     wbuf = torch.empty(2 * w.numel(), dtype=g2.dtype, device=g2.device)
     _build.check(_lib().linear_dgrad_launch(g2.data_ptr(), w.data_ptr(), dx.data_ptr(),
-                                            wbuf.data_ptr(), m, n, k, _stream(g2)),
+                                            wbuf.data_ptr(), m, n, k, _build.stream(g2.device)),
                  "linear input gradient")
-    _launched("dgrad", geo)
+    launches.count("dgrad", 2 * m * n * k)
     return dx
 
 
@@ -203,29 +164,24 @@ def weight_grad(x2: torch.Tensor, g2: torch.Tensor, geo,
     reduction): x2 [M, K], g2 [M, N] rows → (dw [N, K], db [N] where
     ``bias``, else None)."""
     m, n, k = geo
+    lib = _lib()
     dw = torch.empty((n, k), dtype=g2.dtype, device=g2.device)
     db = torch.empty((n,), dtype=g2.dtype, device=g2.device) if bias else None
-    ws = torch.empty(_wgrad_workspace(g2.device.index, geo), dtype=g2.dtype, device=g2.device)
-    _build.check(_lib().linear_wgrad_launch(x2.data_ptr(), g2.data_ptr(), dw.data_ptr(),
-                                            None if db is None else db.data_ptr(),
-                                            ws.data_ptr(), m, n, k, _stream(g2)),
+    ws = torch.empty(_build.workspace("linear_gemm", "linear_wgrad_workspace", g2.device.index,
+                                      geo), dtype=g2.dtype, device=g2.device)
+    _build.check(lib.linear_wgrad_launch(x2.data_ptr(), g2.data_ptr(), dw.data_ptr(),
+                                         None if db is None else db.data_ptr(),
+                                         ws.data_ptr(), m, n, k, _build.stream(g2.device)),
                  "linear weight gradient")
-    _launched("wgrad", geo)
+    launches.count("wgrad", 2 * m * n * k)
     return dw, db
-
-
-def _on(dev: torch.device):
-    """``dev`` made current for the launchers, where it is not already."""
-    if dev.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(dev)
 
 
 class _Linear(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b, geo):
-        x2 = _rows(x, geo[2])
-        with _on(x.device):
+        x2 = _aligned(x).view(-1, geo[2])
+        with _build.on(x.device):
             y = forward_rows(x2, w, b, geo)
         ctx.save_for_backward(x2, w)
         ctx.geo, ctx.x_shape, ctx.has_bias = geo, x.shape, b is not None
@@ -235,9 +191,9 @@ class _Linear(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, gy):
         x2, w = ctx.saved_tensors
-        g2 = _rows(gy, ctx.geo[1])
+        g2 = _aligned(gy).view(-1, ctx.geo[1])
         dx = dw = db = None
-        with _on(gy.device):
+        with _build.on(gy.device):
             if ctx.needs_input_grad[0]:
                 dx = input_grad_rows(g2, w, ctx.geo).view(ctx.x_shape)
             if ctx.needs_input_grad[1] or (ctx.has_bias and ctx.needs_input_grad[2]):
@@ -267,10 +223,4 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f"linear: x on {x.device}, weight or bias elsewhere")
     geo = geometry(tuple(x.shape), tuple(weight.shape),
                    None if bias is None else tuple(bias.shape))
-    if not weight.is_contiguous() or weight.data_ptr() % 16:
-        relayouts.add()
-        profiling.count("linear.relayout")
-        weight = weight.contiguous() if not weight.is_contiguous() else weight.clone()
-    if bias is not None and (not bias.is_contiguous() or bias.data_ptr() % 16):
-        bias = bias.contiguous() if not bias.is_contiguous() else bias.clone()
-    return _Linear.apply(x, weight, bias, geo)
+    return _Linear.apply(x, _aligned(weight), None if bias is None else _aligned(bias), geo)

@@ -19,11 +19,10 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from vqwild_tpu_torch.core import profiling
 from vqwild_tpu_torch.ops import _build
-from vqwild_tpu_torch.ops.tf32 import tf32_split
+from vqwild_tpu_torch.ops.tf32 import split_sum
 
-launches = profiling.Counter()  # launches of the kernel
+launches = _build.OpCounters("stem_pool", ("fwd",))  # launches of the kernel
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -47,26 +46,20 @@ def stem_s2d_pool_tf32_emulated(x: torch.Tensor, w: torch.Tensor, b: torch.Tenso
     is ``x_lo*w_hi + x_hi*w_lo + x_hi*w_hi``, each product exact and the sums
     in fp32. ``passes=1`` keeps only ``x_hi*w_hi``, plain TF32. Nothing on
     the serving path calls this; the tests hold the split's accuracy with it."""
-    if passes not in (1, 3):
-        raise ValueError(f"passes must be 1 or 3, got {passes}")
     c = x.shape[3]
     xf = F.pad(x.permute(0, 3, 1, 2).float(), (2, 1, 2, 1))
     k = w.reshape(4, 4, c, -1).permute(3, 2, 0, 1).float()  # HWIO → OIHW
-    (x_hi, x_lo), (k_hi, k_lo) = tf32_split(xf), tf32_split(k)
-    y = F.conv2d(x_hi, k_hi)
-    if passes == 3:
-        y = (F.conv2d(x_lo, k_hi) + F.conv2d(x_hi, k_lo)) + y
+    y = split_sum(F.conv2d, xf, k, passes)
     y = torch.relu(y + b.float()[None, :, None, None]).to(x.dtype)
     return F.max_pool2d(y, 3, 2, padding=1).permute(0, 2, 3, 1).contiguous()
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"stem_s2d_pool_launch": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)}
+
+
 def _lib():
-    lib = _build.load("stem_pool")
-    fn = lib.stem_s2d_pool_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    return _build.bind("stem_pool", _SIGNATURES)
 
 
 def stem_s2d_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -98,11 +91,10 @@ def stem_s2d_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Te
     out = torch.empty((n, h // 2, wd // 2, 64), dtype=x.dtype, device=x.device)
     if n == 0:
         return out
-    fn = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    fn = _lib().stem_s2d_pool_launch
+    with _build.on(x.device):
         rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                n, h, wd, c, _DTYPES[x.dtype], stream)
+                n, h, wd, c, _DTYPES[x.dtype], _build.stream(x.device))
     _build.check(rc, "stem_s2d_pool")
-    launches.add()
+    launches.count("fwd")
     return out

@@ -42,9 +42,10 @@ from vqwild_tpu_torch.data.longvideo import (
     read_chunk_batch_yuv,
 )
 from vqwild_tpu_torch.data.schema import VideoRecord
+from vqwild_tpu_torch.models.arv import TRUNKS
 from vqwild_tpu_torch.models.fold import make_embed_fn, require_resnet_trunk
 from vqwild_tpu_torch.models.heads import l2_normalize
-from vqwild_tpu_torch.models.resnet_f2f import BN_EPS, ResNet18F2F
+from vqwild_tpu_torch.models.resnet_f2f import BN_EPS
 from vqwild_tpu_torch.ops.hostmem import alloc_array
 from vqwild_tpu_torch.ops.preprocess import (
     normalize_clips,
@@ -111,7 +112,7 @@ def make_feat_fn(trunk: nn.Module, *, wire: str = "rgb", dtype=torch.float32,
                             stem_mode="yuv_s2d" if wire == "yuv420" else "conv7",
                             bn_eps=bn_eps, device=dev)
     else:
-        eps = trunk.bn1.eps if trunk.trunk_name == ResNet18F2F.trunk_name else bn_eps
+        eps = trunk.bn1.eps if TRUNKS[trunk.trunk_name].foldable else bn_eps
         if dtype != trunk.dtype or bn_eps != eps:
             raise ValueError(f"folded=False runs the module as built (dtype {trunk.dtype}, "
                              f"bn_eps {eps}); got dtype {dtype}, bn_eps {bn_eps}")
