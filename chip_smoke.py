@@ -406,6 +406,9 @@ CONV_SMALL_FRAMES = 4
 # triplets of 8 frames of 224² in ViT-B/16's widths
 LINEAR_TOL = {"fwd": 5e-6, "dgrad": 5e-6, "wgrad": 5e-6, "bias": 5e-6}
 TSF_TRIPLETS, TSF_FRAMES, TSF_CROP = 10, 8, 224
+# K5 against float64, the tests' limit (tests/test_torch_attention.py
+# CARD_TOL): exact fp32 products and softmax over at most 16 rows of 128
+ATTENTION_TOL = 1e-5
 # the training loop at the JAX package's defaults (core/config.py): 10
 # triplets a step, 8 loader threads (capped at the host's cores), va; 2
 # epochs of 12 steps, a print every 4; the validation split cut to 25 base
@@ -2768,6 +2771,181 @@ def phase_linear(dev, *, triplets, frames, crop):
     return out
 
 
+def sdpa_packed(qkv, heads, scale):
+    """The TimeSformer trunk's SDPA path on a packed qkv [n, L, 3·D], held
+    to the memory-efficient kernel: q, k and v as selects of a permuted
+    view, the call, o's heads back into rows (a copy). Its gradient is
+    autograd's: a zero-filled qkv gradient per select, then their sum."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    n, length, three_d = qkv.shape
+    d = three_d // 3
+    x = qkv.view(n, length, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        o = F.scaled_dot_product_attention(x[0], x[1], x[2], scale=scale)
+    return o.transpose(1, 2).reshape(n, length, d)
+
+
+def attention_calls(clips, frames, crop, patch=16):
+    """(sequences, length) of a TimeSformer block's temporal and spatial
+    attention calls over ``clips`` clips."""
+    n = (crop // patch) ** 2
+    return {"temporal": (clips * n, frames), "spatial": (clips * frames, n + 1)}
+
+
+def attention_errors(fns, qkv, g, heads, scale):
+    """For each fn of ``fns`` (packed qkv → o), o's and the packed dqkv's
+    largest gap to attention_plain in float64, over its largest entry."""
+    import torch
+
+    from vqwild_tpu_torch.ops import attention as attention_ops
+
+    q64 = qkv.double().requires_grad_()
+    o64 = attention_ops.attention_plain(q64, heads, scale)
+    want = (o64.detach(), torch.autograd.grad(o64, q64, g.double())[0])
+    del q64, o64
+    out = {}
+    for name, fn in fns.items():
+        leaf = qkv.detach().requires_grad_()
+        o = fn(leaf)
+        got = (o.detach(), torch.autograd.grad(o, leaf, g)[0])
+        out[name] = [float((a.double() - b).abs().max() / b.abs().max())
+                     for a, b in zip(got, want)]
+        del leaf, o, got
+    return out
+
+
+def phase_attention(dev, *, triplets, frames, crop, dim=768, heads=12):
+    """K5 (ops/attention.py) at the TimeSformer train step's temporal call
+    (``triplets`` x 3 clips of ``frames`` x crop², ViT-B/16's widths), at
+    the CPU rehearsal's (2 frames, 4 heads of 16) and at every length 1-16:
+    o and the packed dqkv against attention_plain in float64 beside SDPA's
+    memory-efficient kernel's on the same inputs (ATTENTION_TOL). Timed at
+    the temporal shape, forward and backward: K5, attention_plain and SDPA's
+    memory-efficient call with its qkv-gradient assembly (``library_ms``),
+    each beside the bound in bytes; SDPA also at the spatial shape, which
+    stays on it. Then one fp32 va train step of the trunk, profiled: K5's
+    launches and the recorder's ``attention.*`` counters (12 and 12), and
+    the memory-efficient kernel's calls, the spatial branch's alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vqwild_tpu_torch.core import profiling
+    from vqwild_tpu_torch.models.arv import ARVModel
+    from vqwild_tpu_torch.ops import attention as attention_ops
+    from vqwild_tpu_torch.ops.preprocess import rgb_to_yuv420_host
+    from vqwild_tpu_torch.train.step import create_train_state, make_optimizer, make_train_step
+
+    clips = 3 * triplets
+    gen = torch.Generator(device=dev).manual_seed(24)
+    calls = attention_calls(clips, frames, crop)
+    n_t, length_t = calls["temporal"]
+    hd = dim // heads
+    cases = [("temporal", n_t, length_t, heads, hd), ("rehearsal", 2 * 3 * 16, 2, 4, 16)]
+    cases += [(f"length{L}", 97, L, heads, hd) for L in range(1, 17)]
+    failed, checks = [], []
+    for name, n, length, h, c in cases:
+        qkv = torch.randn(n, length, 3 * h * c, generator=gen, device=dev)
+        g = torch.randn(n, length, h * c, generator=gen, device=dev)
+        scale = c ** -0.5
+        errs = attention_errors(
+            {"k5": lambda t: attention_ops.attention(t, h, scale),
+             "sdpa": lambda t: sdpa_packed(t, h, scale)}, qkv, g, h, scale)
+        row = {"case": name, "shape": [n, length, h, c], "k5_rel_err": errs["k5"],
+               "sdpa_rel_err": errs["sdpa"]}
+        checks.append(row)
+        for what, k5, lib in zip(("o", "dqkv"), errs["k5"], errs["sdpa"]):
+            if not k5 <= ATTENTION_TOL:
+                failed.append(f"K5 {what} at {name} {row['shape']}: relative error {k5} > "
+                              f"{ATTENTION_TOL}")
+        del qkv, g
+    emit({"phase": "attention_check", "cases": checks})
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+    timed = {}
+    for kind, (n, length) in calls.items():
+        qkv = torch.randn(n, length, 3 * dim, generator=gen, device=dev)
+        g = torch.randn(n, length, dim, generator=gen, device=dev)
+        scale = hd ** -0.5
+        fwd_b, bwd_b = attention_ops.least_bytes(n, length, dim)
+        leaf = qkv.detach().requires_grad_()
+        cell = {"shape": [n, length, heads, hd]}
+        fns = {"library": lambda t: sdpa_packed(t, heads, scale)}
+        if kind == "temporal":
+            geo = attention_ops.geometry(tuple(qkv.shape), heads)
+            fns["plain"] = lambda t: attention_ops.attention_plain(t, heads, scale)
+            cell["kernel_fwd_ms"] = time_ms(
+                lambda: attention_ops.forward_rows(qkv, heads, scale, geo))
+            cell["kernel_bwd_ms"] = time_ms(
+                lambda: attention_ops.backward_rows(qkv, g, heads, scale, geo))
+        for what, fn in fns.items():
+            with torch.enable_grad():
+                out = fn(leaf)
+            cell[f"{what}_fwd_ms"] = time_ms(lambda: fn(leaf))
+            cell[f"{what}_bwd_ms"] = time_ms(
+                lambda: torch.autograd.grad(out, leaf, g, retain_graph=True))
+            del out
+        cell.update(bound_fwd_ms=fwd_b / HBM_BYTES_PER_S * 1e3,
+                    bound_bwd_ms=bwd_b / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+        if kind == "temporal":
+            cell["kernel_bound_share"] = ((cell["bound_fwd_ms"] + cell["bound_bwd_ms"])
+                                          / (cell["kernel_fwd_ms"] + cell["kernel_bwd_ms"]))
+        timed[kind] = cell
+        emit(dict(phase="attention_time", kind=kind, **cell))
+        del qkv, g, leaf
+        torch.cuda.empty_cache()
+
+    # one train step: K5's launches, the counters, the fmha kernels' calls
+    rng = np.random.default_rng(25)
+    frames_u8 = rng.integers(0, 256, (clips, frames, crop, crop, 3), dtype=np.uint8)
+    arrays = tuple(torch.from_numpy(a).to(dev) for a in rgb_to_yuv420_host(frames_u8))
+    labels = torch.from_numpy(rng.integers(0, TRAIN_NCLASS, clips)).to(dev)
+    torch.manual_seed(4)
+    with dev:
+        model = ARVModel("va", nclass=TRAIN_NCLASS, feat_dim=dim, trunk="timesformer_divst")
+    tx = make_optimizer(init_lr=1e-4, weight_decay=1e-5, steps_per_epoch=100, lr_decay_epoch=9)
+    state = create_train_state(model, tx, seed=1)
+    step = make_train_step(model, tx, wire="yuv420")
+    state, _ = step(state, *arrays, labels)  # warm-up: the build
+    torch.cuda.synchronize()
+    before = {p: attention_ops.launches[p].n for p in attention_ops.PASSES}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)  # the profiler can lose its first kernels
+        state, _ = step(state, *arrays, labels)
+        torch.cuda.synchronize()
+    counted = {p: attention_ops.launches[p].n - before[p] for p in attention_ops.PASSES}
+    recorded = {k: v for k, v in profiling.counters().items() if k.startswith("attention.")}
+    calls_by_kernel = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") and ("fmha" in e.key or "short_attention" in e.key):
+            calls_by_kernel[e.key[:90]] = [e.count, e.self_device_time_total / 1e3]
+    kernels = device_ms_by_kernel(prof)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    del model, state, step
+    torch.cuda.empty_cache()
+    want = {"fwd": 12, "bwd": 12}
+    bytes_want = 12 * sum(attention_ops.least_bytes(n_t, length_t, dim))
+    if counted != want or any(recorded.get(f"attention.{p}") != n for p, n in want.items()) \
+            or recorded.get("attention.bytes") != bytes_want:
+        raise AssertionError(f"an fp32 TimeSformer step launched K5 {counted}, recorded "
+                             f"{recorded}; not {want} and {bytes_want} bytes")
+    fmha_calls = sum(c for k, (c, _) in calls_by_kernel.items() if "fmha" in k)
+    if fmha_calls != 24:
+        raise AssertionError(f"an fp32 TimeSformer step ran {fmha_calls} fmha kernels, not the "
+                             f"spatial branch's 12 forward and 12 backward: {calls_by_kernel}")
+    out = {"phase": "attention_summary", "card": card_line(), "clips": clips, "frames": frames,
+           "crop": crop, "launches": counted, "recorder_counters": recorded,
+           "attention_kernels": calls_by_kernel,
+           "k5_step_ms": sum(v for k, v in kernels.items() if "short_attention" in k),
+           "fmha_step_ms": sum(v for k, v in kernels.items() if "fmha" in k),
+           "device_ms": sum(kernels.values()),
+           "top_kernels_ms": [[k[:90], v] for k, v in top], "timed": timed}
+    emit(out)
+    return out
+
+
 def phase_train(dev, *, triplets, frames, crop, warmup, timed):
     """The train step at full width for baseline, va and vasa: fp32 (TF32
     off) and bf16 over the same seeded batches, then one fp32 step on the
@@ -4735,7 +4913,7 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    secs = _build.build(["sq_l2", "stem_pool", "conv_igemm", "linear_gemm"])
+    secs = _build.build(["sq_l2", "stem_pool", "conv_igemm", "linear_gemm", "short_attention"])
     ptxas = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln] for n in secs}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_kernel_s": secs,
@@ -4755,6 +4933,7 @@ def main() -> int:
     k3 = phase_conv(dev, frames=TRAIN_TRIPLETS * 3 * FRAMES, crop=CROP,
                     small_frames=CONV_SMALL_FRAMES, triplets=TRAIN_TRIPLETS, train_frames=FRAMES)
     k4 = phase_linear(dev, triplets=TSF_TRIPLETS, frames=TSF_FRAMES, crop=TSF_CROP)
+    k5 = phase_attention(dev, triplets=TSF_TRIPLETS, frames=TSF_FRAMES, crop=TSF_CROP)
     host_launch(dev, triplets=TRAIN_TRIPLETS, frames=FRAMES, crop=CROP, warmup=3, timed=20)
     train_choices(dev, frames=TRAIN_TRIPLETS * 3 * FRAMES, crop=CROP)
     train_vs_cpu(dev, steps=3, batch=6, frames=2, crop=32)
@@ -4896,6 +5075,12 @@ def main() -> int:
          "per_pass_ms": k4["per_pass_ms"], "ms": k4["kernel_ms_all"],
          "bound_ms": k4["bound_ms_all"], "library_ms": k4["library_ms_all"],
          "shape": "the trunk's linears of a TimeSformer train step, forward and both gradients"},
+        {"name": "short_attention", "route": "cuda",
+         "source": "vqwild_tpu_torch/csrc/short_attention.cu",
+         "replaces": "no TPU kernel: SDPA's memory-efficient fp32 attention over the "
+                     "TimeSformer trunk's 8 frames, and autograd's qkv-gradient assembly",
+         "launches_per_train_step": k5["launches"], "timed": k5["timed"]["temporal"],
+         "shape": "the temporal attention of a TimeSformer train step, one call"},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

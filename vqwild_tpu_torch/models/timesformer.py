@@ -51,10 +51,14 @@ patch rows come back through a transposed view inside the residual add;
 the MLP and the final LayerNorm, which act token by token, run on the class
 token and the tokens apart. The patch conv runs as one matrix product over
 patches gathered in token order (a relayout), its weight [D, 3, 16, 16]
-read as [D, 16·16·3]. Attention is ``F.scaled_dot_product_attention``, on
-a card limited to the memory-efficient kernel (float32 through
-error-compensated TF32 products, CUTLASS's ``OpMultiplyAddFastF32``) and
-the math kernel: never a kernel that computes float32 in TF32 or less. The
+read as [D, 16·16·3]. Attention over a CUDA float32 input of at most 16
+tokens (the temporal branch's frames) runs on K5 (``ops/attention.py``:
+exact fp32 on the packed qkv, whose gradient comes back packed); any other
+(the spatial branch, the CPU, float64, bf16) is
+``F.scaled_dot_product_attention``, on a card limited to the
+memory-efficient kernel (float32 through error-compensated TF32 products,
+CUTLASS's ``OpMultiplyAddFastF32``) and the math kernel: never a kernel
+that computes float32 in TF32 or less. The
 linears and the patch product run on K4 (``ops/linear.py``: three
 error-compensated TF32 products on the tensor cores) for a CUDA float32
 input, and in ``F.linear`` for any other.
@@ -89,6 +93,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vqwild_tpu_torch.core import profiling
+from vqwild_tpu_torch.ops import attention as attention_ops
 from vqwild_tpu_torch.ops import linear as linear_ops
 
 # vit_base_patch16_224 with divided space-time attention, 8 frames
@@ -112,6 +117,15 @@ def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 def _norm(layer: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     return F.layer_norm(x, layer.normalized_shape, layer.weight.to(x.dtype),
                         layer.bias.to(x.dtype), layer.eps)
+
+
+def _short(x: torch.Tensor, length: int, head_dim: int) -> bool:
+    """Whether attention over ``x`` [rows, length, D] runs on K5
+    (``ops/attention.py``): a CUDA float32 input of sequences and heads the
+    kernel takes (the temporal branch's few frames); every other (the
+    spatial branch's N + 1 tokens, the CPU, float64, bf16) runs
+    ``F.scaled_dot_product_attention``."""
+    return x.is_cuda and x.dtype == torch.float32 and attention_ops.takes(length, head_dim)
 
 
 def _sdpa_backends(x: torch.Tensor):
@@ -178,7 +192,10 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, length, d = x.shape
         hd = d // self.heads
-        qkv = _linear(self.qkv, x).view(n, length, 3, self.heads, hd).permute(2, 0, 3, 1, 4)
+        qkv = _linear(self.qkv, x)
+        if _short(x, length, hd):
+            return _linear(self.proj, attention_ops.attention(qkv, self.heads, hd ** -0.5))
+        qkv = qkv.view(n, length, 3, self.heads, hd).permute(2, 0, 3, 1, 4)
         with _sdpa_backends(x):
             o = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2], scale=hd ** -0.5)
         return _linear(self.proj, o.transpose(1, 2).reshape(n, length, d))

@@ -1,6 +1,6 @@
 """Build, bind, place and count the port's CUDA kernels: the seam that
 each hand-written kernel's wrapper (``distance``, ``stem_pool``, ``conv``,
-``linear``) plugs into.
+``linear``, ``attention``) plugs into.
 
 Each ``csrc/<name>.cu`` holds one kernel behind a plain ``extern "C"``
 launcher. It is compiled with nvcc for ``sm_90a`` into
@@ -163,8 +163,8 @@ class OpCounters(dict):
     """An op's always-on counts, a ``profiling.Counter`` for each of its
     events (``self[event].n``; ``n`` and ``reset`` over all of them).
     ``count`` bumps one and, from the same call while the recorder is on,
-    the recorder's counter ``<op>.<event>`` and, where a FLOP count is
-    given, ``<op>.flop`` (core/profiling.py)."""
+    the recorder's counter ``<op>.<event>`` and, where a FLOP count or a
+    byte count is given, ``<op>.flop`` or ``<op>.bytes`` (core/profiling.py)."""
 
     def __init__(self, op: str, events: Sequence[str]):
         super().__init__((e, profiling.Counter()) for e in events)
@@ -178,8 +178,10 @@ class OpCounters(dict):
         for c in self.values():
             c.reset()
 
-    def count(self, event: str, flop: int = 0) -> None:
+    def count(self, event: str, flop: int = 0, nbytes: int = 0) -> None:
         self[event].add()
         profiling.count(f"{self.op}.{event}")
         if flop:
             profiling.count(f"{self.op}.flop", flop)
+        if nbytes:
+            profiling.count(f"{self.op}.bytes", nbytes)
