@@ -177,6 +177,14 @@ def va_losses(P, x, labels, gen, cfg, fault=None):
     n = (h // cfg["patch"]) * (w // cfg["patch"])
     masks = draw_masks(gen, b, t, n, drop_path_rates(cfg["drop_path"], cfg["depth"]))
     _, ce = trunk(P, x, cfg, masks, fault)
+    return head_losses(P, ce, labels, gen, cfg)
+
+
+def head_losses(P, ce, labels, gen, cfg):
+    """The VA heads from the clip embeddings ``ce`` on -> (loss, the updated
+    visual memory). Draws the clip dropout mask, then the non-local
+    block's, from ``gen``; updates the non-local BatchNorm's statistics in
+    ``P``."""
     _linear(_dropout(ce, cfg["dropout"], gen), P, "fc")  # the classifier: no loss under va
     ne = _l2n(ce)
     mem = P["visual_memory"]
@@ -208,11 +216,14 @@ class VATrainer:
     """Train steps from a state dict: torch's Adam with L2 decay added to
     the gradient, every parameter in every update, the non-local BatchNorm's
     statistics and the memory updated each step. ``grads`` holds the last
-    step's gradients by key."""
+    step's gradients by key. ``losses`` is the model's train-mode forward,
+    ``va_losses`` here."""
+
+    losses = staticmethod(va_losses)
 
     def __init__(self, state: Dict[str, torch.Tensor], cfg, dropout_seed: int, fault=None):
         self.P = {k: v.detach().clone() for k, v in state.items()}
-        self.params = [k for k in self.P if k not in BUFFERS]
+        self.params = [k for k in self.P if k not in BUFFERS and self.P[k].is_floating_point()]
         for k in self.params:
             self.P[k].requires_grad_(True)
         self.opt = torch.optim.Adam([self.P[k] for k in self.params], lr=cfg["init_lr"],
@@ -224,8 +235,8 @@ class VATrainer:
 
     def step(self, y_u8, uv_u8, labels, dtype) -> float:
         labels = labels.long()
-        loss, new_mem = va_losses(self.P, decode_yuv420(y_u8, uv_u8, dtype), labels, self.gen,
-                                  self.cfg, self.fault)
+        loss, new_mem = self.losses(self.P, decode_yuv420(y_u8, uv_u8, dtype), labels, self.gen,
+                                    self.cfg, self.fault)
         grads = torch.autograd.grad(loss, [self.P[k] for k in self.params], allow_unused=True)
         self.grads = {k: torch.zeros_like(self.P[k]) if g is None else g
                       for k, g in zip(self.params, grads)}

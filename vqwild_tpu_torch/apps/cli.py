@@ -145,9 +145,10 @@ def parse(argv=None):
                         "training (fp32 params/losses; float32 runs with "
                         "TF32 off and matches reference numerics)")
     p.add_argument("--trunk", choices=list(TRUNKS), default=ModelConfig.trunk,
-                   help="the ARV trunk: the reference's ResNet18-F2F, or TimeSformer's "
+                   help="the ARV trunk: the reference's ResNet18-F2F, TimeSformer's "
                         "divided space-time ViT-B/16 (768-d embeddings; sized by "
-                        "--train_frame and --input_size)")
+                        "--train_frame and --input_size), or the Video Swin "
+                        "Transformer's Swin-B (1,024-d embeddings)")
     p.add_argument("--stem_s2d", action="store_true",
                    help="carried in the config for the JAX package's runs; "
                         "the port's trunk trains through the 7x7 stem either way")

@@ -66,8 +66,9 @@ class ModelConfig:
     # the 7x7 conv (models/resnet_f2f.py) and carries the field for the
     # config JSON
     stem_s2d: bool = False
-    # the trunk (models/arv.TRUNKS): "resnet18_f2f", the reference's, or
-    # "timesformer_divst" (models/timesformer.py); the port's field alone,
+    # the trunk (models/arv.TRUNKS): "resnet18_f2f", the reference's,
+    # "timesformer_divst" (models/timesformer.py) or "swin3d_b" (Video Swin,
+    # models/swin3d.py); the port's field alone,
     # which the JAX package's config has not
     trunk: str = "resnet18_f2f"
 

@@ -12,16 +12,17 @@ resnet18_va.py, resnet18_vasa.py, selected by --method, main.py:194-217):
   MLP producing word logits −‖sem − normalize(adaptor(e))‖/τ.
 
 ``ARVModel`` holds a chosen trunk (``TRUNKS``: the ResNet18-F2F, the
-reference's, by default; or TimeSformer's divided space-time ViT,
-models/timesformer.py) with the heads beside it. The trunk's layers sit at
+reference's, by default; TimeSformer's divided space-time ViT,
+models/timesformer.py; or the Video Swin Transformer, models/swin3d.py)
+with the heads beside it. The trunk's layers sit at
 the model's top level, as the reference's ResNet3D holds its own, so a
 ResNet18-F2F model's state_dict is the reference checkpoint's: the trunk's
 keys at the top, ``fc``, ``visual_memory``, ``cls_nl.*``, ``nled_fc``,
 ``word_adaptor.fc…fc4``. The trunk gives the clip embedding the heads take:
 the ResNet's mean of its frame features over time, TimeSformer's class
-token. The reference's dead ``rank_nl`` block (resnet18_va.py:114-119,
-never called) is not built; ``convert.load_reference_model`` drops its
-keys.
+token, Video Swin's mean over its final tokens. The reference's dead
+``rank_nl`` block (resnet18_va.py:114-119, never called) is not built;
+``convert.load_reference_model`` drops its keys.
 """
 
 from __future__ import annotations
@@ -35,12 +36,13 @@ from torch import nn
 from vqwild_tpu_torch.core.device import cpu_seeded, resolve_device
 from vqwild_tpu_torch.models import heads
 from vqwild_tpu_torch.models.resnet_f2f import BN_EPS, BN_MOMENTUM, ResNet18F2F
+from vqwild_tpu_torch.models.swin3d import SwinTransformer3D
 from vqwild_tpu_torch.models.timesformer import TimeSformer
 
 METHODS = ("baseline", "va", "vasa")
 # a trunk is its class (``trunk_name``, ``feat_dim``, ``data_sizes``,
 # ``foldable``, one ``build`` signature, ``embed``) and one entry here
-TRUNKS = {cls.trunk_name: cls for cls in (ResNet18F2F, TimeSformer)}
+TRUNKS = {cls.trunk_name: cls for cls in (ResNet18F2F, TimeSformer, SwinTransformer3D)}
 
 
 @dataclasses.dataclass
@@ -64,14 +66,16 @@ class ARVModel(nn.Module):
     ``train=True`` also the method's logits, updates the BN running
     statistics and, where ``update_memory``, the visual memory. Dropout
     (clip dropout ``dropout`` in front of ``fc`` only, the non-local block's
-    ``nl_dropout``, and a trunk's own, TimeSformer's drop path, before
-    them) draws from ``generator``.
+    ``nl_dropout``, and a trunk's own, TimeSformer's and Video Swin's drop
+    path, before them) draws from ``generator``.
 
     ``trunk`` names the trunk (``TRUNKS``), ``trunk_args`` its sizes beyond
     the width ``feat_dim`` (the ResNet's are fixed by the reference; for
     TimeSformer ``depth``, ``heads``, ``mlp``, ``patch``, ``frames``,
     ``crop``, ``drop_path``, ``ln_eps``, each defaulting to
-    ``vit_base_patch16_224``'s)."""
+    ``vit_base_patch16_224``'s; for Video Swin ``embed_dim``, ``depths``,
+    ``heads``, ``window``, ``patch``, ``mlp_ratio``, ``drop_path``,
+    ``ln_eps``, each defaulting to Swin-B's)."""
 
     def __init__(self, method: str = "baseline", nclass: int = 200, feat_dim: int = 512,
                  dropout: float = 0.5, nl_dropout: float = 0.2, temperature: float = 0.1,

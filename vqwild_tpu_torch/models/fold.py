@@ -108,13 +108,20 @@ def _block_names(sd: Mapping[str, Any]):
     return out
 
 
+# a key that only the named trunk's state_dict holds
+_OTHER_TRUNKS = {"cls_token": "a TimeSformer trunk",
+                 "layers.0.blocks.0.attn.relative_position_bias_table": "a Video Swin trunk"}
+
+
 def require_resnet_trunk(state_dict: Mapping[str, Any], what: str) -> None:
     """Raise unless ``state_dict`` holds the ResNet18-F2F trunk: ``what``
     (BN folding, the int8 trunk) works on its convs and their BatchNorms,
-    which another trunk (TimeSformer's, models/timesformer.py) has not."""
+    which another trunk (TimeSformer's, models/timesformer.py; Video
+    Swin's, models/swin3d.py) has not."""
     if "conv1.weight" in state_dict and "bn1.running_var" in state_dict:
         return
-    other = "a TimeSformer trunk" if "cls_token" in state_dict else "no ResNet18-F2F trunk"
+    other = next((name for key, name in _OTHER_TRUNKS.items() if key in state_dict),
+                 "no ResNet18-F2F trunk")
     raise ValueError(f"{what} takes the ResNet18-F2F trunk's convs and BatchNorms; this "
                      f"state_dict holds {other}: embed it unfolded, "
                      "retrieval.features.make_feat_fn(folded=False)")

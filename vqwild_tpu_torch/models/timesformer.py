@@ -101,10 +101,13 @@ DIM, DEPTH, HEADS, MLP, PATCH, FRAMES, CROP = 768, 12, 12, 3072, 16, 8, 224
 DROP_PATH, LN_EPS = 0.1, 1e-6
 
 
-def _affine(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """``x weightᵀ + bias``: on K4 (``ops/linear.py``) for a CUDA float32
-    input, ``F.linear`` for any other (the CPU, float64, bf16)."""
-    weight, bias = weight.to(x.dtype), bias.to(x.dtype)
+def _affine(x: torch.Tensor, weight: torch.Tensor,
+            bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """``x weightᵀ + bias`` (``bias`` None: none): on K4 (``ops/linear.py``)
+    for a CUDA float32 input, ``F.linear`` for any other (the CPU, float64,
+    bf16)."""
+    weight = weight.to(x.dtype)
+    bias = None if bias is None else bias.to(x.dtype)
     if x.is_cuda and x.dtype == torch.float32:
         return linear_ops.linear(x, weight, bias)
     return F.linear(x, weight, bias)

@@ -71,8 +71,8 @@ def make_feat_fn(trunk: nn.Module, *, wire: str = "rgb", dtype=torch.float32,
     (fold.stem_to_yuv_s2d), which runs as kernel K2.
 
     ``folded=False`` keeps the trained module's eval graph: ``trunk`` (a
-    ``ResNet18F2F``, a ``TimeSformer`` or an ``ARVModel`` of either, whose
-    weights are copied now, as the JAX function captures its variables) in
+    ``ResNet18F2F``, a ``TimeSformer``, a ``SwinTransformer3D`` or an
+    ``ARVModel`` of any, whose weights are copied now, as the JAX function captures its variables) in
     its own compute dtype and BN epsilon, after
     ``ops/preprocess.normalize_clips`` or ``normalize_clips_yuv420``; the
     per-frame embeddings are L2-normalized over C. ``dtype`` and, for the
