@@ -409,6 +409,12 @@ TSF_TRIPLETS, TSF_FRAMES, TSF_CROP = 10, 8, 224
 # K5 against float64, the tests' limit (tests/test_torch_attention.py
 # CARD_TOL): exact fp32 products and softmax over at most 16 rows of 128
 ATTENTION_TOL = 1e-5
+# K6 against float64, the tests' limit (tests/test_torch_window_attention.py
+# CARD_TOL): 3xTF32 products and a softmax over 392 keys; the Video Swin
+# train step of the benchmark's vswin-va-train cell: 3 triplets of 32
+# frames of 224² in Swin-B's widths
+WINDOW_TOL = 1e-5
+SWIN_TRIPLETS, SWIN_FRAMES, SWIN_CROP = 3, 32, 224
 # the training loop at the JAX package's defaults (core/config.py): 10
 # triplets a step, 8 loader threads (capped at the host's cores), va; 2
 # epochs of 12 steps, a print every 4; the validation split cut to 25 base
@@ -2946,6 +2952,204 @@ def phase_attention(dev, *, triplets, frames, crop, dim=768, heads=12):
     return out
 
 
+def swin_window_calls(clips, frames, crop):
+    """Swin-B's window-attention calls over ``clips`` clips of ``frames`` x
+    crop², by stage: (clips, windows, heads, N, the padded grid, the window,
+    the odd blocks' shift, the stage's blocks)."""
+    import math
+
+    from vqwild_tpu_torch.models import swin3d
+
+    grid = [math.ceil(frames / 2), math.ceil(crop / 4), math.ceil(crop / 4)]
+    out = {}
+    for i, (depth, heads) in enumerate(zip(swin3d.DEPTHS, swin3d.HEADS)):
+        window, shift = swin3d.get_window_size(grid, swin3d.WINDOW,
+                                               tuple(w // 2 for w in swin3d.WINDOW))
+        padded = tuple(math.ceil(g / w) * w for g, w in zip(grid, window))
+        nw = math.prod(p // w for p, w in zip(padded, window))
+        out[f"s{i + 1}"] = (clips, nw, heads, math.prod(window), padded, window, shift, depth)
+        grid = [grid[0], math.ceil(grid[1] / 2), math.ceil(grid[2] / 2)]
+    return out
+
+
+def phase_window_attention(dev, *, triplets, frames, crop):
+    """K6 (ops/window_attention.py) at the Video Swin train step's four
+    stage shapes (``triplets`` x 3 clips of ``frames`` x crop², Swin-B's
+    windows and heads), shifted and not: o, dq, dk, dv and the table's
+    gradient against window_attention_plain in float64 (WINDOW_TOL) at the
+    step's own clips, which the backward's dQ takes 9 to a block. Timed at
+    each stage over the step's clips, forward and
+    backward: K6, window_attention_plain, and SDPA's path as the trunk took
+    it before K6 (the bias gathered and added to the mask, the
+    memory-efficient kernel, the table's gradient through autograd;
+    ``library_ms``), each beside its bound (operations at 165 TFLOP/s), and
+    summed over a step's 2 / 2 / 18 / 2 calls. Then one fp32 va train step
+    of the trunk, profiled: K6's launches and the recorder's
+    ``window_attention.*`` counters (24 and 24), no ``fmha`` kernel."""
+    import copy
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vqwild_tpu_torch.core import profiling
+    from vqwild_tpu_torch.models import swin3d
+    from vqwild_tpu_torch.models.arv import ARVModel
+    from vqwild_tpu_torch.ops import window_attention as window_ops
+    from vqwild_tpu_torch.ops.preprocess import rgb_to_yuv420_host
+    from vqwild_tpu_torch.train.step import create_train_state, make_optimizer, make_train_step
+
+    clips = 3 * triplets
+    gen = torch.Generator(device=dev).manual_seed(26)
+    calls = swin_window_calls(clips, frames, crop)
+    scale = 32 ** -0.5
+
+    def case(b, nw, heads, n, grid, window, shift):
+        q, k, v, g = (torch.randn(b, n, nw * heads * 32, generator=gen, device=dev)
+                      for _ in range(4))
+        attn = swin3d.WindowAttention3D(32 * heads, swin3d.WINDOW, heads).to(dev)
+        with torch.no_grad():
+            attn.relative_position_bias_table.normal_(0.0, 0.1, generator=gen)
+        regions = swin3d.compute_regions(grid, window, shift, dev) if any(shift) else None
+        return q, k, v, g, attn, regions
+
+    def passes(fn, q, k, v, g, attn, regions):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        table = attn.relative_position_bias_table
+        n = q.shape[1]
+        o = fn(*leaves, table, attn.relative_position_index[:n, :n], regions, attn.heads, scale)
+        return (o.detach(),) + torch.autograd.grad(o, leaves + [table], g)
+
+    failed, checks = [], []
+    for stage, (_, nw, heads, n, grid, window, shift, _) in calls.items():
+        for shifted in (True, False):
+            q, k, v, g, attn, regions = case(clips, nw, heads, n, grid, window,
+                                             shift if shifted else (0, 0, 0))
+            got = passes(window_ops.window_attention, q, k, v, g, attn, regions)
+            want = passes(window_ops.window_attention_plain, q.double(), k.double(), v.double(),
+                          g.double(), copy.deepcopy(attn).double(), regions)
+            errs = [float((a.double() - b).abs().max() / b.abs().max())
+                    for a, b in zip(got, want)]
+            row = {"stage": stage, "shifted": bool(regions is not None),
+                   "shape": [clips, nw, heads, n], "rel_err": errs}
+            checks.append(row)
+            if not max(errs) <= WINDOW_TOL:
+                failed.append(f"K6 at {stage} {row}: relative error {max(errs)} > {WINDOW_TOL}")
+            del q, k, v, g, attn, got, want
+            torch.cuda.empty_cache()
+    emit({"phase": "window_attention_check", "cases": checks})
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+    def sdpa_path(q, k, v, table, index, regions, heads, scale_, attn=None, mask=None):
+        b, n, f = q.shape
+        nw = f // (32 * heads)
+        qh, kh, vh = (t.view(b, n, nw * heads, 32).transpose(1, 2) for t in (q, k, v))
+        o = swin3d.attend(qh, kh, vh, attn.bias(n, nw, mask, q.dtype), scale_)
+        return o.transpose(1, 2).reshape(b, n, f)
+
+    timed, step = {}, {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for stage, (b, nw, heads, n, grid, window, shift, depth) in calls.items():
+        q, k, v, g, attn, regions = case(b, nw, heads, n, grid, window, shift)
+        mask = None if regions is None else window_ops.region_mask(regions)
+        table = attn.relative_position_bias_table
+        index = attn.relative_position_index[:n, :n]
+        geo = window_ops.geometry(q, k, v, table, index, regions, heads)
+        tab_t = table.detach().t().contiguous()
+        (ff, fb), (bf, bb) = window_ops.work(*geo, heads)
+        cell = {"shape": [b, nw, heads, n], "shifted": regions is not None,
+                "bound_fwd_ms": max(ff / 165e12, fb / 3.35e12) * 1e3,
+                "bound_bwd_ms": max(bf / 165e12, bb / 3.35e12) * 1e3, "bound_by": "operations"}
+        out, lse = window_ops.forward_rows(q, k, v, tab_t, index, regions, heads, scale, geo)
+        cell["kernel_fwd_ms"] = time_ms(lambda: window_ops.forward_rows(
+            q, k, v, tab_t, index, regions, heads, scale, geo), iters=10)
+        cell["kernel_bwd_ms"] = time_ms(lambda: window_ops.backward_rows(
+            q, k, v, out, g, lse, tab_t, index, regions, heads, scale, geo), iters=10)
+        del out, lse
+        fns = {"plain": window_ops.window_attention_plain,
+               "library": lambda *a: sdpa_path(*a, attn=attn, mask=mask)}
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        for what, fn in fns.items():
+            def fwd():
+                return fn(*leaves, table, index, regions, heads, scale)
+            o = fwd()
+            cell[f"{what}_fwd_ms"] = time_ms(fwd, iters=3, warmup=1)
+            cell[f"{what}_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+                o, leaves + [table], g, retain_graph=True), iters=3, warmup=1)
+            del o
+            torch.cuda.empty_cache()
+        cell["kernel_bound_share"] = ((cell["bound_fwd_ms"] + cell["bound_bwd_ms"])
+                                      / (cell["kernel_fwd_ms"] + cell["kernel_bwd_ms"]))
+        for what in ("kernel", "plain", "library", "bound"):
+            step[f"{what}_ms"] += depth * (cell[f"{what}_fwd_ms"] + cell[f"{what}_bwd_ms"])
+        timed[stage] = cell
+        emit(dict(phase="window_attention_time", stage=stage, **cell))
+        del q, k, v, g, attn, leaves, regions, mask
+        torch.cuda.empty_cache()
+    emit(dict(phase="window_attention_step_calls", **step))
+
+    # one train step: K6's launches, the counters, no fmha kernel
+    rng = np.random.default_rng(27)
+    frames_u8 = rng.integers(0, 256, (clips, frames, crop, crop, 3), dtype=np.uint8)
+    arrays = tuple(torch.from_numpy(a).to(dev) for a in rgb_to_yuv420_host(frames_u8))
+    labels = torch.from_numpy(rng.integers(0, TRAIN_NCLASS, clips)).to(dev)
+    torch.manual_seed(4)
+    with dev:
+        model = ARVModel("va", nclass=TRAIN_NCLASS, feat_dim=1024, trunk="swin3d_b")
+    tx = make_optimizer(init_lr=1e-4, weight_decay=1e-5, steps_per_epoch=100, lr_decay_epoch=9)
+    state = create_train_state(model, tx, seed=1)
+    train_step = make_train_step(model, tx, wire="yuv420")
+    state, _ = train_step(state, *arrays, labels)  # warm-up
+    torch.cuda.synchronize()
+    before = {p: window_ops.launches[p].n for p in window_ops.PASSES}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)  # the profiler can lose its first kernels
+        state, _ = train_step(state, *arrays, labels)
+        torch.cuda.synchronize()
+    counted = {p: window_ops.launches[p].n - before[p] for p in window_ops.PASSES}
+    recorded = {k: v for k, v in profiling.counters().items()
+                if k.startswith("window_attention.")}
+    kernels = device_ms_by_kernel(prof)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    del model, state, train_step
+    torch.cuda.empty_cache()
+    flop_want = sum(depth * sum(window_ops.work(b, n, nw * heads, 2535, heads)[i][0]
+                                for i in (0, 1))
+                    for b, nw, heads, n, _, _, _, depth in calls.values())
+    if counted != {"fwd": 24, "bwd": 24} or recorded.get("window_attention.fwd") != 24 \
+            or recorded.get("window_attention.bwd") != 24 \
+            or recorded.get("window_attention.flop") != flop_want:
+        raise AssertionError(f"an fp32 Swin step launched K6 {counted}, recorded {recorded}; "
+                             f"not 24 / 24 and {flop_want} FLOP")
+    fmha = {k: v for k, v in kernels.items() if "fmha" in k}
+    if fmha:
+        raise AssertionError(f"an fp32 Swin step ran fmha kernels: {fmha}")
+    out = {"phase": "window_attention_summary", "card": card_line(), "clips": clips,
+           "frames": frames, "crop": crop, "launches": counted, "recorder_counters": recorded,
+           "k6_step_ms": sum(v for k, v in kernels.items() if "window_attention_" in k),
+           "device_ms": sum(kernels.values()),
+           "top_kernels_ms": [[k[:90], v] for k, v in top], "timed": timed,
+           "step_calls": step, "max_rel_err": max(max(r["rel_err"]) for r in checks)}
+    emit(out)
+    return out
+
+
+def window_attention_entry(k6):
+    """K6's entry of the kernels line, from ``phase_window_attention``'s
+    result: launches a train step, and kernel / plain / library ms and the
+    bound summed over a step's 24 calls, forward and backward."""
+    step = k6["step_calls"]
+    return {"name": "window_attention", "route": "cuda",
+            "source": "vqwild_tpu_torch/csrc/window_attention.cu",
+            "replaces": "no TPU kernel: SDPA's memory-efficient fp32 attention with the bias "
+                        "and shift mask over Video Swin's windows, and autograd's bias gradient",
+            "launches_per_train_step": k6["launches"], "max_rel_err": k6["max_rel_err"],
+            "ms": step["kernel_ms"], "plain_ms": step["plain_ms"],
+            "library_ms": step["library_ms"], "bound_ms": step["bound_ms"],
+            "bound_by": "operations", "per_stage": k6["timed"],
+            "shape": f"the 24 window attentions of a {k6['clips']}-clip Video Swin train step, "
+                     f"forward and backward"}
+
+
 def phase_train(dev, *, triplets, frames, crop, warmup, timed):
     """The train step at full width for baseline, va and vasa: fp32 (TF32
     off) and bf16 over the same seeded batches, then one fp32 step on the
@@ -4913,7 +5117,8 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    secs = _build.build(["sq_l2", "stem_pool", "conv_igemm", "linear_gemm", "short_attention"])
+    secs = _build.build(["sq_l2", "stem_pool", "conv_igemm", "linear_gemm", "short_attention",
+                         "window_attention"])
     ptxas = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln] for n in secs}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_kernel_s": secs,
@@ -4934,6 +5139,7 @@ def main() -> int:
                     small_frames=CONV_SMALL_FRAMES, triplets=TRAIN_TRIPLETS, train_frames=FRAMES)
     k4 = phase_linear(dev, triplets=TSF_TRIPLETS, frames=TSF_FRAMES, crop=TSF_CROP)
     k5 = phase_attention(dev, triplets=TSF_TRIPLETS, frames=TSF_FRAMES, crop=TSF_CROP)
+    k6 = phase_window_attention(dev, triplets=SWIN_TRIPLETS, frames=SWIN_FRAMES, crop=SWIN_CROP)
     host_launch(dev, triplets=TRAIN_TRIPLETS, frames=FRAMES, crop=CROP, warmup=3, timed=20)
     train_choices(dev, frames=TRAIN_TRIPLETS * 3 * FRAMES, crop=CROP)
     train_vs_cpu(dev, steps=3, batch=6, frames=2, crop=32)
@@ -5081,6 +5287,7 @@ def main() -> int:
                      "TimeSformer trunk's 8 frames, and autograd's qkv-gradient assembly",
          "launches_per_train_step": k5["launches"], "timed": k5["timed"]["temporal"],
          "shape": "the temporal attention of a TimeSformer train step, one call"},
+        window_attention_entry(k6),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

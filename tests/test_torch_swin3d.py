@@ -32,6 +32,7 @@ from vqwild_tpu_torch.core import profiling
 from vqwild_tpu_torch.core.config import ModelConfig
 from vqwild_tpu_torch.models import fold, quant, swin3d
 from vqwild_tpu_torch.models.arv import ARVModel, build_model
+from vqwild_tpu_torch.ops import window_attention as window_ops
 from vqwild_tpu_torch.retrieval.features import make_feat_fn
 from vqwild_tpu_torch.train import step as step_mod
 from vqwild_tpu_torch.train.step import create_train_state, make_optimizer, make_train_step
@@ -131,7 +132,8 @@ def test_the_attention_mask_is_contiguous(shifted):
     dimension is strided, and SDPA would fall back to its math path."""
     model = swin_model()
     blk = model.layers[0].blocks[1]
-    mask = swin3d.compute_mask((4, 12, 9), WINDOW, (1, 1, 1), "cpu") if shifted else None
+    mask = (window_ops.region_mask(swin3d.compute_regions((4, 12, 9), WINDOW, (1, 1, 1), "cpu"))
+            if shifted else None)
     bias = blk.attn.bias(18, 24, mask, torch.float32)
     assert bias.shape == (1, 24 * HEADS[0], 18, 18) and bias.is_contiguous()
 

@@ -52,12 +52,19 @@ own product with its third of ``attn.qkv``, are [B, nW·heads, N, 32] views
 and the bias and the mask, one [nW·heads, N, N] table a block, broadcast
 over the clips inside ``F.scaled_dot_product_attention``'s float
 ``attn_mask``; the attention's output comes back [B, N, nW, C] as a view.
-Its gradient flows into the bias table through that mask. On a card the
-attention is held to the memory-efficient kernel (float32 through
-error-compensated TF32 products; its backward writes the mask's gradient
-at full size, which autograd reduces over the clips and windows) or the
-math kernel (models/timesformer._sdpa_backends): never a kernel that
-computes float32 in TF32 or less. The patch conv runs as one matrix
+Its gradient flows into the bias table through that mask. A CUDA float32
+call of head_dim 32 over at most 392 tokens a window (every Swin-B stage)
+runs on K6 instead (``ops/window_attention.py``): q, k and v as the qkv
+products write them, [B, N, nW·C], the bias formed inside the kernel from
+the table, the index and the shift's region ids [nW, N]
+(``compute_regions``), the output in the layout ``proj`` reads, and the
+table's gradient summed inside the kernel. Every other call (the CPU,
+float64, bf16, a shape K6 does not take) runs SDPA; on a card SDPA is held
+to the memory-efficient kernel (float32 through error-compensated TF32
+products; its backward writes the mask's gradient at full size, which
+autograd reduces over the clips and windows) or the math kernel
+(models/timesformer._sdpa_backends): never a kernel that computes float32
+in TF32 or less. The patch conv runs as one matrix
 product over patches gathered in token order (a relayout), each patch in
 its weight's (channel, frame, row, col) order, the weight [C, 3, 2, 4, 4]
 read as the view [C, 3·2·4·4]. The linears, the patch product and
@@ -95,12 +102,12 @@ from torch import nn
 
 from vqwild_tpu_torch.core import profiling
 from vqwild_tpu_torch.models import timesformer as tsf
+from vqwild_tpu_torch.ops import window_attention as window_ops
 
 # swin_base_patch244_window877_kinetics400_1k, 32 frames of 224x224
 EMBED, DEPTHS, HEADS = 128, (2, 2, 18, 2), (4, 8, 16, 32)
 WINDOW, PATCH, MLP_RATIO, FRAMES, CROP = (8, 7, 7), (2, 4, 4), 4, 32, 224
 DROP_PATH, LN_EPS = 0.3, 1e-5
-MASK = -100.0  # compute_mask's logit between tokens of different regions
 
 Dims = Tuple[int, int, int]
 
@@ -147,11 +154,11 @@ def window_reverse(x: torch.Tensor, window: Dims, grid: Dims) -> torch.Tensor:
     return x.reshape(b, d, h, w, c)
 
 
-def compute_mask(grid: Dims, window: Dims, shift: Dims, device) -> torch.Tensor:
-    """The published ``compute_mask`` over the padded ``grid``: [nW, N, N]
-    float32, 0 between tokens of one region of the rolled grid and −100
-    between tokens of two (windows in ``window_partition``'s grid order)."""
-    img = torch.zeros((1,) + tuple(grid) + (1,), device=device)
+def compute_regions(grid: Dims, window: Dims, shift: Dims, device) -> torch.Tensor:
+    """Each token's region of the rolled, padded ``grid`` by window: [nW, N]
+    int32 (windows in ``window_partition``'s grid order), the ids that the
+    published ``compute_mask`` compares."""
+    img = torch.zeros((1,) + tuple(grid) + (1,), dtype=torch.int32, device=device)
     cnt = 0
     cuts = [(slice(-w), slice(-w, -s), slice(-s, None)) for w, s in zip(window, shift)]
     for d in cuts[0]:
@@ -159,9 +166,7 @@ def compute_mask(grid: Dims, window: Dims, shift: Dims, device) -> torch.Tensor:
             for w in cuts[2]:
                 img[:, d, h, w, :] = cnt
                 cnt += 1
-    regions = window_partition(img, window)[0, :, :, 0].t()  # [nW, N]
-    diff = regions[:, None, :] - regions[:, :, None]
-    return torch.where(diff != 0, torch.full_like(diff, MASK), torch.zeros_like(diff))
+    return window_partition(img, window)[0, :, :, 0].t().contiguous()
 
 
 def _relayout(t: torch.Tensor) -> torch.Tensor:
@@ -179,6 +184,14 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor
         return F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale)
 
 
+def windowed(x: torch.Tensor, length: int, head_dim: int) -> bool:
+    """Whether the window attention over ``x`` runs on K6
+    (``ops/window_attention.py``): a CUDA float32 input of windows and heads
+    the kernels take (head_dim 32, at most 392 tokens); every other (the
+    CPU, float64, bf16, any other shape) runs ``attend``."""
+    return x.is_cuda and x.dtype == torch.float32 and window_ops.takes(length, head_dim)
+
+
 class WindowAttention3D(nn.Module):
     """Multi-head self-attention within windows with the published
     relative-position bias, on [B, N, nW, C]."""
@@ -193,6 +206,13 @@ class WindowAttention3D(nn.Module):
         self.qkv = nn.Linear(dim, dim * 3, bias=True)
         self.proj = nn.Linear(dim, dim)
 
+    def _load_from_state_dict(self, *args, **kwargs):
+        # K6 reads the index as row plus column offsets: refuse a loaded
+        # index that is not of that form
+        super()._load_from_state_dict(*args, **kwargs)
+        window_ops.check_index(self.relative_position_index,
+                               self.relative_position_bias_table.shape[0])
+
     def bias(self, n: int, nw: int, mask: Optional[torch.Tensor], dtype) -> torch.Tensor:
         """[1, nW·heads, N, N]: ``table[index[:N, :N]]`` by head, plus the
         window's mask, one table for every clip."""
@@ -204,13 +224,24 @@ class WindowAttention3D(nn.Module):
         out = rel.expand(nw, -1, n, n) if mask is None else rel[None] + mask.to(dtype)[:, None]
         return out.reshape(1, nw * self.heads, n, n)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, regions: Optional[torch.Tensor]) -> torch.Tensor:
+        """``regions`` [nW, N]: the shift's region ids (``compute_regions``),
+        None for an unshifted block. K6 compares them inside the kernel;
+        SDPA takes them as the mask ``region_mask`` builds."""
         b, n, nw, c = x.shape
         hd = c // self.heads
         w, bias = self.qkv.weight, self.qkv.bias
-        # q, k and v each its own product, so that each is a [B, nW·heads, N, hd] view
+        # q, k and v each its own product, [B, N, nW·C]: K6 reads them as they lie,
+        # SDPA through [B, nW·heads, N, hd] views
         q, k, v = (tsf._affine(x, w[i * c:(i + 1) * c], bias[i * c:(i + 1) * c])
-                   .view(b, n, nw * self.heads, hd).transpose(1, 2) for i in range(3))
+                   .view(b, n, nw * c) for i in range(3))
+        if windowed(x, n, hd):
+            o = window_ops.window_attention(q, k, v, self.relative_position_bias_table,
+                                            self.relative_position_index[:n, :n], regions,
+                                            self.heads, hd ** -0.5)
+            return tsf._linear(self.proj, o.view(b, n, nw, c))
+        q, k, v = (t.view(b, n, nw * self.heads, hd).transpose(1, 2) for t in (q, k, v))
+        mask = None if regions is None else window_ops.region_mask(regions, x.dtype)
         o = attend(q, k, v, self.bias(n, nw, mask, x.dtype), hd ** -0.5)
         return tsf._linear(self.proj, o.transpose(1, 2).reshape(b, n, nw, c))
 
@@ -226,7 +257,7 @@ class SwinTransformerBlock3D(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=eps)
         self.mlp = tsf.Mlp(dim, hidden)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], train: bool,
+    def forward(self, x: torch.Tensor, regions: Optional[torch.Tensor], train: bool,
                 generator: Optional[torch.Generator], mesh=None) -> torch.Tensor:
         b, d, h, w, _ = x.shape
         window, shift = get_window_size((d, h, w), self.window, self.shift)
@@ -240,7 +271,7 @@ class SwinTransformerBlock3D(nn.Module):
             grid = tuple(r.shape[1:4])
             if any(shift):
                 r = _relayout(torch.roll(r, tuple(-s for s in shift), (1, 2, 3)))
-            r = self.attn(_relayout(window_partition(r, window)), mask if any(shift) else None)
+            r = self.attn(_relayout(window_partition(r, window)), regions if any(shift) else None)
             profiling.count(f"swin.attn.s{self.stage}")
             r = _relayout(window_reverse(r, window, grid))
             if any(shift):
@@ -288,12 +319,12 @@ class BasicLayer(nn.Module):
 
     def forward(self, x, train, generator, mesh=None):
         window, shift = get_window_size(x.shape[1:4], self.window, self.shift)
-        mask = None
+        regions = None
         if any(shift):
             grid = tuple(math.ceil(n / s) * s for n, s in zip(x.shape[1:4], window))
-            mask = compute_mask(grid, window, shift, x.device)
+            regions = compute_regions(grid, window, shift, x.device)
         for blk in self.blocks:
-            x = blk(x, mask, train, generator, mesh)
+            x = blk(x, regions, train, generator, mesh)
         return x if self.downsample is None else self.downsample(x)
 
 
